@@ -1,7 +1,10 @@
-"""The port's precision policy.
+"""The port's precision and fusion policies.
 
-* Statevectors and Pauli features run in float32 / complex64 (the CUDA
-  Pauli-feature kernel is float32-only, like the Pallas kernel it replaces).
+* Statevectors and Pauli features run in float32 / complex64 on the
+  production path, like the Pallas kernels they replace. float64 angles run
+  the reference-grade complex128 path (the float64 instantiations of the
+  Pauli-feature and states kernels on the card), as the JAX package's XLA
+  engine does on CPU and GPU.
 * The GP side (Grams handed to solves, NLL, gradients, CV folds, posterior)
   runs in direct float64, which is native on the card — the JAX package's
   ``resolve_dtype_mode("auto")`` picks the same on CPU and GPU. Its "mixed"
@@ -17,9 +20,34 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 GP_DTYPE = torch.float64
+
+# The gate-fusion switch, verbatim from dqgp_tpu/config.py:34-50 (the
+# thresholds were measured on a TPU v5e and stay until the card's own K2 vs
+# K4 times say otherwise). "auto" fuses only the Pauli-feature path at >= 10
+# qubits; "on" fuses everywhere, "off" nowhere. Env: DQGP_FUSION. Read at
+# call time, so ``config.use_fusion = "on"`` takes effect at once.
+use_fusion: str = os.environ.get("DQGP_FUSION", "auto")
+
+FUSION_MIN_QUBITS_FEATURES: int = int(
+    os.environ.get("DQGP_FUSION_MIN_QUBITS", "10"))
+
+
+def fusion_enabled(num_qubits: int | None = None,
+                   path: str = "features") -> bool:
+    """Fusion policy. ``path`` is "features" (Pauli features, the
+    projected-kernel hot path) or "states" (raw statevectors / fidelity)."""
+    if use_fusion == "off":
+        return False
+    if use_fusion == "on":
+        return True
+    if num_qubits is None:  # auto with no size context: be conservative
+        return False
+    return path == "features" and num_qubits >= FUSION_MIN_QUBITS_FEATURES
 
 
 def set_precision_policy() -> None:

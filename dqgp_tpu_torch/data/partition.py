@@ -3,10 +3,13 @@ RNG/threshold semantics: regional (1D sort-split / regular grid / k-d
 bisection fallback), random (seeded permutation), sequential, plus per-agent
 percentage subsampling. Host-side numpy (runs once before training); a copy
 of ``dqgp_tpu/data/partition.py``, whose legacy ``np.random`` seeding is
-load-bearing for parity with the reference's shards."""
+load-bearing for parity with the reference's shards. ``train_test_split_np``
+is the held-out split the CLI takes from sklearn (cli.py:367-374), in numpy,
+so the port needs no sklearn."""
 
 from __future__ import annotations
 
+import math
 from typing import List, Tuple
 
 import numpy as np
@@ -115,3 +118,23 @@ def split_data_numpy(
             )
         agent_data.append((X_agent, Y_agent))
     return agent_data
+
+
+def train_test_split_np(X: np.ndarray, Y: np.ndarray, test_size: float,
+                        seed: int):
+    """sklearn's ``train_test_split(X, Y, arange(n), test_size=test_size,
+    random_state=seed, shuffle=True)`` in numpy, for a fractional
+    ``test_size``: ShuffleSplit takes ``RandomState(seed).permutation(n)``,
+    its first ceil(test_size * n) entries as the test set and the rest as
+    the training set, both in permutation order.
+
+    Returns (X_train, X_test, Y_train, Y_test, train_idx, test_idx)."""
+    n = X.shape[0]
+    if not 0.0 < test_size < 1.0:
+        raise ValueError(f"test_size must be in (0, 1), got {test_size}")
+    n_test = math.ceil(test_size * n)
+    if n_test >= n:
+        raise ValueError(f"test_size={test_size} leaves no training rows of {n}")
+    perm = np.random.RandomState(seed).permutation(n)
+    test_idx, train_idx = perm[:n_test], perm[n_test:]
+    return X[train_idx], X[test_idx], Y[train_idx], Y[test_idx], train_idx, test_idx

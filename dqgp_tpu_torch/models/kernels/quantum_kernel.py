@@ -7,11 +7,14 @@ Gradients are the reference's central difference with h = pi/8 over
 parameters wrapped to the torus before evaluation
 (agent_riemannian.py:38-41, 247-275).
 
-Device policy: on CUDA, float32 projected features with per-qubit Pauli
-measurements run the hand-written kernel (K1). Everything the card does not
-have a kernel for yet raises: float64 features, fidelity kernels and full
-Pauli strings (which need the states kernel, K2). On the CPU the plain
-statevector engine serves every case.
+Device policy, mirroring the JAX package's dispatch: projected features
+with per-qubit Pauli measurements run the Pauli-feature kernel (K1);
+fidelity states and full Pauli strings run the states kernel (K2), or the
+fused-program states kernel (K4) where ``config.fusion_enabled(n, "states")``;
+float64 angles run K1's and K2's float64 instantiations. Full Pauli-string
+expectations are plain torch on the states, as they are XLA in the JAX
+package. On the card, the fused Pauli-feature path (K3) is not ported and
+raises. On the CPU every wrapper runs its kernel's plain version.
 """
 
 from __future__ import annotations
@@ -22,15 +25,15 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ... import config
 from ...manifold import PERIOD
 from ...ops.circuit import Circuit
-from ...ops.cuda_circuit import pauli_features_from_angles
-from ...ops.statevector import (
-    angle_matrix,
-    pauli_features,
-    pauli_string_expectation,
-    state_from_angles,
+from ...ops.cuda_circuit import (
+    pauli_features_from_angles,
+    states_from_angles,
+    states_from_angles_fused,
 )
+from ...ops.statevector import angle_matrix, pauli_string_expectation
 from ..circuits import build_circuit
 from .outer import outer_gram
 
@@ -110,34 +113,28 @@ def features_from_angles(spec: QuantumKernelSpec, angles: torch.Tensor) -> torch
 
     (B, 2^n) complex states for fidelity, (B, D) real for projected.
     Precision follows ``angles.dtype``: float64 angles run the complex128
-    engine (CPU only)."""
+    path. Mirrors ``dqgp_tpu/models/kernels/quantum_kernel.py``'s dispatch,
+    with the hand-written kernels in place of the Pallas ones."""
     n = spec.circuit.num_qubits
     f64 = angles.dtype == torch.float64
-    cdtype = torch.complex128 if f64 else torch.complex64
     m = _measurement_selector(spec) if spec.kernel_type == "projected" else None
-    simple_paulis = m is not None and all(len(s) == 1 for s in m)
 
-    if _is_cuda(angles):
-        if f64:
+    if m is not None and all(len(s) == 1 for s in m):
+        if _is_cuda(angles) and not f64 and config.fusion_enabled(n, "features"):
             raise NotImplementedError(
-                "float64 features on CUDA: the float64 statevector path is "
-                "not ported to the card (the Pauli-feature kernel is float32)")
-        if not simple_paulis:
-            what = ("fidelity kernels" if spec.kernel_type == "fidelity"
-                    else "full Pauli-string measurements")
-            raise NotImplementedError(
-                f"{what} on CUDA need the states kernel K2 "
-                f"(make_pallas_states_fn), which is not ported yet")
-
-    if simple_paulis:
-        if f64:
-            full = pauli_features(state_from_angles(spec.circuit, angles, cdtype), n)
-        else:
-            full = pauli_features_from_angles(spec.circuit, angles)
+                "fused Pauli features on CUDA need the fused Pauli-feature "
+                "kernel K3 (make_pallas_pauli_features_fused_fn), which is not "
+                "ported yet; set dqgp_tpu_torch.config.use_fusion = 'off'")
+        full = pauli_features_from_angles(spec.circuit, angles)
         blocks = {"X": full[:, :n], "Y": full[:, n:2 * n], "Z": full[:, 2 * n:]}
         return torch.cat([blocks[c] for c in m], dim=-1)
 
-    states = state_from_angles(spec.circuit, angles, cdtype)
+    # The fused kernel is float32-only, as in the JAX package, where float64
+    # always takes the unfused engine.
+    if not f64 and config.fusion_enabled(n, "states"):
+        states = states_from_angles_fused(spec.circuit, angles)
+    else:
+        states = states_from_angles(spec.circuit, angles)
     if spec.kernel_type == "fidelity":
         return states
     cols = [pauli_string_expectation(states, p) for p in m]
@@ -233,13 +230,13 @@ class QuantumKernel:
     surface the reference touches: main.py:198-205, 245, 1413-1430)."""
 
     def __init__(self, spec: QuantumKernelSpec, device, dtype: str = "auto"):
-        """``dtype="auto"`` is float64 on the CPU (the JAX facade's
-        reference-grade default there) and float32 on the card, where the
-        float64 statevector path is not ported."""
+        """``dtype="auto"`` is float64 on every device: the JAX facade's
+        reference-grade default wherever complex128 is native (CPU and GPU,
+        ``dqgp_tpu/config.py::resolve_gram_dtype``)."""
         self.spec = spec
         self.device = torch.device(device)
         if dtype == "auto":
-            dtype = "float64" if self.device.type == "cpu" else "float32"
+            dtype = "float64"
         self.dtype = {"float32": torch.float32, "float64": torch.float64}[dtype]
         self._parameters: Optional[torch.Tensor] = None
 

@@ -2,9 +2,9 @@
 
 Port of ``dqgp_tpu/ops/statevector.py``. It prepares all sample states in one
 batched pass over a (B, 2^n) complex tensor, one tensor op (or a few) per
-gate. This is the plain twin of the hand-written Pauli-feature kernel
-(``ops/cuda_circuit.py``): the wrapper runs it for CPU tensors, and the card
-checks hold the kernel to it. It runs in complex64 or complex128; the trig
+gate. This is the plain twin of the hand-written Pauli-feature and states
+kernels (``ops/cuda_circuit.py``): the wrappers run it for CPU tensors, and
+the card checks hold the kernels to it. It runs in complex64 or complex128; the trig
 precision tracks the state's precision.
 
 Qubit 0 is the least-significant bit of the state index.
@@ -134,6 +134,13 @@ def state_from_angles(circuit: Circuit, angles: torch.Tensor,
     for gi, gate in enumerate(circuit.gates):
         state = apply_gate(state, gate, angles[:, gi], circuit.num_qubits)
     return state
+
+
+def batched_states(circuit: Circuit, X: torch.Tensor, theta: torch.Tensor,
+                   dtype=torch.complex64) -> torch.Tensor:
+    """States Psi(x_i; theta) for a whole batch: (N, 2^n)."""
+    return state_from_angles(
+        circuit, angle_matrix(circuit, X, theta, _real_dtype(dtype)), dtype)
 
 
 def pauli_features(state: torch.Tensor, num_qubits: int) -> torch.Tensor:

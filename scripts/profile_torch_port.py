@@ -1,0 +1,124 @@
+#!/usr/bin/env python
+"""Where the time of one ADMM iteration of the PyTorch port goes, on a GPU.
+
+    python scripts/profile_torch_port.py                # both cells
+    python scripts/profile_torch_port.py --cell fidelity --iters 5
+
+For each cell — ``northstar`` (chip_smoke.py phase 4's problem) and
+``fidelity`` (phase 7's, BASELINE config #5) — it warms up one iteration
+(the consensus step plus 5-fold CV, from the seeded initial state), then
+runs ``--iters`` more under ``torch.profiler`` and prints per iteration: the
+host wall time, the device time summed over kernels, the device's idle
+share (1 - device / wall), the kernel count, and the device time by kernel
+group. Needs a CUDA device; imports nothing of JAX.
+"""
+
+import argparse
+import os
+import re
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+GROUPS = (  # first match wins
+    ("hand kernels (K1/K2/K4)", r"pauli_features_kernel|states_kernel|states_fused_kernel"),
+    ("eigh (condition numbers)", r"syev|sytrd|stedc|ormtr|steqr|sterf|latrd"),
+    ("triangular solves", r"trsm|trsv|trtri"),
+    ("Cholesky", r"potrf|potrs"),
+    ("GEMM", r"gemm|gemv|xmma|cutlass|Kernel2|dot_kernel"),
+    ("elementwise, copies, reductions", r".*"),
+)
+
+
+def _problem(cell, dev):
+    from dqgp_tpu_torch.data import split_data_numpy
+    from dqgp_tpu_torch.models.circuits import build_circuit
+    from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
+
+    if cell == "northstar":
+        X, Y, _, _ = cs.make_problem()
+        spec = QuantumKernelSpec(
+            circuit=build_circuit("chebyshev", cs.NUM_QUBITS, cs.NUM_FEATURES,
+                                  cs.NUM_LAYERS),
+            kernel_type="projected", outer_kernel="matern")
+        return spec, X, Y, split_data_numpy(X, Y, cs.N_AGENTS, "regional"), 42
+    spec, _, _, _, X_tr, Y_tr, _, _, splits = cs.fidelity_problem(dev)
+    return spec, X_tr, Y_tr, splits, cs.FID_SEED
+
+
+def profile(cell, iters, dev):
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from dqgp_tpu_torch.driver import TrainConfig, init_admm_state
+    from dqgp_tpu_torch.models.gp.cv import cv_fold_scores_impl, kfold_pad_indices
+    from dqgp_tpu_torch.parallel.consensus import make_admm_step, make_agent_batch
+
+    spec, X, Y, splits, seed = _problem(cell, dev)
+    cfg = TrainConfig(verbose=False, seed=seed)
+    step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std)
+    batch = make_agent_batch(splits, dev)
+    Xt, Yt = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
+    theta, psi, _ = init_admm_state(len(splits), spec.num_parameters, seed, cfg.rho)
+    state = [torch.as_tensor(theta, device=dev), torch.as_tensor(psi, device=dev)]
+    folds = kfold_pad_indices(len(X), cfg.cv_folds, seed + 1, dev)
+
+    def iteration():
+        out = step(state[0], state[1], batch)
+        cv_fold_scores_impl(spec, Xt, Yt, out.z, *folds, noise_std=cfg.noise_std)
+        state[0], state[1] = out.theta, out.psi
+
+    iteration()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            iteration()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+
+    by_group = {name: 0.0 for name, _ in GROUPS}
+    n_kernels = 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        n_kernels += e.count
+        for name, pattern in GROUPS:
+            if re.search(pattern, e.key):
+                by_group[name] += us / 1e3 / iters
+                break
+    device_ms = sum(by_group.values())
+    print(f"{cell}: wall {wall_ms:.3f} ms/iteration, device {device_ms:.3f} ms, "
+          f"idle share {1 - device_ms / wall_ms:.3f}, "
+          f"{n_kernels / iters:.0f} kernels/iteration")
+    for name, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
+        print(f"  {ms:9.3f} ms  {name}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cell", choices=("northstar", "fidelity", "both"), default="both")
+    ap.add_argument("--iters", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 1
+    from dqgp_tpu_torch import config
+
+    config.set_precision_policy()
+    dev = torch.device("cuda", 0)
+    for cell in (("northstar", "fidelity") if args.cell == "both" else (args.cell,)):
+        profile(cell, args.iters, dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

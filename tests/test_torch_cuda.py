@@ -1,5 +1,7 @@
-"""Tests that need the card: the CUDA Pauli-feature kernel (K1) against its
-plain PyTorch version, on CUDA tensors. They skip where there is no card.
+"""Tests that need the card: the CUDA circuit kernels — Pauli features (K1,
+float32 and float64), states (K2, float32 and float64) and fused-program
+states (K4) — against their plain PyTorch versions, on CUDA tensors. They
+skip where there is no card.
 
 On a GPU host, where JAX need not be installed (the port does not use it),
 bypass conftest.py, which imports JAX:
@@ -10,6 +12,7 @@ bypass conftest.py, which imports JAX:
 import pytest
 import torch
 
+from dqgp_tpu_torch import config
 from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
 from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
 from dqgp_tpu_torch.models.kernels import quantum_kernel as TQ
@@ -41,11 +44,55 @@ def test_kernel_matches_plain_on_card(cuda, enc):
             assert float((got - want).abs().max()) <= 5e-6
 
 
-def test_card_rejects_unported_requests(cuda):
+def _angles(gen, c, B, dtype):
+    return (torch.rand((B, c.num_gates), generator=gen, device=gen.device,
+                       dtype=dtype) * 4 - 1) * 3.14159
+
+
+@pytest.mark.parametrize("enc", ENCODING_TYPES)
+def test_states_kernels_match_plain_on_card(cuda, enc):
+    """K2 float32 at 2e-6 (tests/test_pallas_circuit.py), K2 and K1 float64
+    at 1e-12 (tests/test_native.py), K4 at 3e-6 (tests/test_fusion.py)
+    against the plain fused engine and the plain unfused states."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for n in (1, 3, 6, 10):
+        c = build_circuit(enc, n, 2, 2)
+        for B in (1, 257):
+            a32, a64 = _angles(gen, c, B, torch.float32), _angles(gen, c, B, torch.float64)
+            before = K1.launch_counts()
+            got = {
+                "K2": K1.states_from_angles(c, a32),
+                "K2_f64": K1.states_from_angles(c, a64),
+                "K1_f64": K1.pauli_features_from_angles(c, a64),
+                "K4": K1.states_from_angles_fused(c, a32),
+            }
+            torch.cuda.synchronize()
+            after = K1.launch_counts()
+            assert all(after[k] == before[k] + 1 for k in got)
+            plain = K1.states_reference(c, a32)
+            assert float((got["K2"] - plain).abs().max()) <= 2e-6
+            assert float((got["K4"] - plain).abs().max()) <= 3e-6
+            assert float((got["K4"] - K1.states_fused_reference(c, a32)).abs().max()) <= 3e-6
+            assert float((got["K2_f64"] - K1.states_reference(c, a64)).abs().max()) <= 1e-12
+            assert float((got["K1_f64"] - K1.pauli_features_reference(c, a64))
+                         .abs().max()) <= 1e-12
+
+
+def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
+    c = build_circuit("kyriienko", 6, 1, 1)
+    spec = QuantumKernelSpec(circuit=c, kernel_type="fidelity")
+    a = torch.zeros((4, c.num_gates), device=cuda)
+    K1.reset_launch_counts()
+    TQ.features_from_angles(spec, a)
+    TQ.features_from_angles(spec, a.double())
+    monkeypatch.setattr(config, "use_fusion", "on")
+    TQ.features_from_angles(spec, a)
+    assert K1.launch_counts() == {"K1": 0, "K1_f64": 0, "K2": 1, "K2_f64": 1, "K4": 1}
+
+
+def test_card_fused_projected_features_raise_naming_k3(cuda, monkeypatch):
+    monkeypatch.setattr(config, "use_fusion", "on")
     c = build_circuit("yz_cx", 2, 2, 1)
     a = torch.zeros((4, c.num_gates), device=cuda)
-    with pytest.raises(NotImplementedError, match="K2"):
-        TQ.features_from_angles(QuantumKernelSpec(circuit=c, kernel_type="fidelity"), a)
-    with pytest.raises(NotImplementedError, match="float64"):
-        TQ.features_from_angles(QuantumKernelSpec(circuit=c, kernel_type="projected"),
-                                a.double())
+    with pytest.raises(NotImplementedError, match="K3"):
+        TQ.features_from_angles(QuantumKernelSpec(circuit=c, kernel_type="projected"), a)

@@ -79,22 +79,41 @@ def fake_cuda(monkeypatch):
 
 
 def test_cuda_float64_request_raises(fake_cuda):
+    """float64 requests go to K1's and K2's float64 instantiations: on the
+    card they reach the kernel build (which the fixture refuses) instead of
+    raising NotImplementedError. A dtype no kernel takes raises."""
     c = build_circuit("chebyshev", 2, 2, 1)
-    spec = spec_from_jax(JaxSpec(circuit=c, kernel_type="projected"))
     a64 = torch.zeros((3, c.num_gates), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="float64"):
-        TQ.features_from_angles(spec, a64)
-    with pytest.raises(NotImplementedError, match="float32-only"):
-        K1.pauli_features_from_angles(circuit_from_jax(c), a64)
+    for kernel_type in ("projected", "fidelity"):
+        spec = spec_from_jax(JaxSpec(circuit=c, kernel_type=kernel_type))
+        with pytest.raises(AssertionError, match="reach the kernel build"):
+            TQ.features_from_angles(spec, a64)
+    with pytest.raises(NotImplementedError, match="float16"):
+        K1.pauli_features_from_angles(circuit_from_jax(c), a64.half())
+    with pytest.raises(NotImplementedError, match="float32 angles"):
+        K1.states_from_angles_fused(circuit_from_jax(c), a64)
+    assert K1.launch_counts() == dict.fromkeys(K1.launch_counts(), 0)
 
 
-def test_cuda_fidelity_and_pauli_strings_raise(fake_cuda):
+def test_cuda_fidelity_and_pauli_strings_raise(fake_cuda, monkeypatch):
+    """Fidelity states and full Pauli strings go to K2 (K4 with fusion on):
+    they reach the kernel build. Fused projected features need K3, which is
+    not ported, and raise naming it."""
+    from dqgp_tpu_torch import config
+
     c = build_circuit("yz_cx", 2, 2, 1)
     a = torch.zeros((3, c.num_gates), dtype=torch.float32)
-    for spec in (JaxSpec(circuit=c, kernel_type="fidelity"),
-                 JaxSpec(circuit=c, kernel_type="projected", measurement=("XZ", "YY"))):
-        with pytest.raises(NotImplementedError, match="K2"):
-            TQ.features_from_angles(spec_from_jax(spec), a)
+    for mode, source in (("off", K1.STATES_SOURCE), ("on", K1.FUSED_SOURCE)):
+        monkeypatch.setattr(config, "use_fusion", mode)
+        for spec in (JaxSpec(circuit=c, kernel_type="fidelity"),
+                     JaxSpec(circuit=c, kernel_type="projected",
+                             measurement=("XZ", "YY"))):
+            with pytest.raises(AssertionError, match="reach the kernel build") as e:
+                TQ.features_from_angles(spec_from_jax(spec), a)
+            assert e.traceback[-1].locals["a"] == (source,)
+    with pytest.raises(NotImplementedError, match="K3"):
+        TQ.features_from_angles(
+            spec_from_jax(JaxSpec(circuit=c, kernel_type="projected")), a)
 
 
 def test_cuda_wrapper_validates_inputs(fake_cuda):
