@@ -6,9 +6,11 @@
 Phases, one line each; any failure raises and exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi);
-2. build   — nvcc builds the Pauli-feature (K1), states (K2) and fused
-             states (K4) kernels for sm_90a, one nvcc each, all started
-             together, with ptxas's register and spill report;
+2. build   — nvcc builds the Pauli-feature (K1), states (K2), fused
+             Pauli-feature (K3) and fused states (K4) kernels for sm_90a,
+             one nvcc each, all started together, with ptxas's register and
+             spill report and K3's threads per block and shared memory at
+             config #7's circuit;
 3. K1      — the kernel against its plain PyTorch version on the same CUDA
              tensors: 8 circuit families x {2,3,4,5,8,10} qubits x batch
              {1, 130, 84240}, plus the main path's own shapes (chebyshev
@@ -48,7 +50,41 @@ Phases, one line each; any failure raises and exits non-zero:
 9. times   — one fidelity ADMM iteration (step + CV), K2 vs plain and K4 vs
              plain fused at B=22500, G=23, n=6, K2 vs K4 at 6 and 10 qubits,
              K2 float64 vs plain complex128 at B=1000, and the 900x900
-             fidelity Gram.
+             fidelity Gram;
+10. K3     — the fused Pauli-feature kernel against its plain version (the
+             plain fused engine) and against K1's plain unfused version on
+             the same CUDA tensors, max abs diff <= 8e-6: 8 families x
+             {2,3,4,6,8,10} qubits x batch {1, 130, 108032}, plus config #7's
+             own shapes (chebyshev 10 qubits / 2 layers, G=70, at 108032
+             step rows, 54016 zero-shift rows, 512 CV rows, 49999
+             predict-train rows, 512 predict-test rows);
+11. config #7 — BASELINE config #7 through ``train(..., device=cuda)`` with
+             streamed gradients and CV on a 512-row subsample, then
+             ``parallel.blocked.make_cg_predictor`` and
+             ``evaluate_predictions``. (a) The fixture problem (config #7's
+             width, 1111 samples over 8 agents, 3 iterations, CG predict of
+             the 112 held-out rows) held to
+             tests/fixtures/torch_port_config7.json: z within 5e-3, agent
+             NLLs scored at JAX's own z of each iteration within
+             max(1e-4, 2 x the JAX package's own relative spread there:
+             its step's NLLs against the same z scored from float64
+             features, its eager float32 engine and the float32 fused
+             program), CV and test NLPD within
+             max(0.05, 2 |JAX f32 - JAX f64|), the spread over JAX's
+             feature precision. (b) Full size: 49999 rows
+             over 64 agents (Nmax 844), 2 iterations, the CG predictor on
+             all rows and a 512-row predict: K3's exact launch count and no
+             other kernel, iteration 1's nll_sum within 1e-3 relative of the
+             JAX package's 90126.2668, the streamed gradient within 1e-6
+             of the central one on 2 agents, and the CG posterior within
+             mean rtol 1e-3 / variance rtol 1e-2 (atol 1e-5) of the dense
+             float64 one on the first 4096 training rows;
+12. times  — one full-size ADMM iteration (step and CV), K3 vs K1 vs the
+             plain fused version at B=108032, n=10, G=70 and K3's launch
+             alone, the CG predictor's set-up (timed in 11b: features,
+             pivoted Cholesky, the alpha solve) and 512-row predict, and
+             the float64 gram_matvec at N=49999 with 1 and 512 right-hand
+             sides.
 
 The last two lines are a JSON record of the kernels and
 ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
@@ -93,6 +129,26 @@ F64_TOL = 1e-12   # float64 states and features, as tests/test_native.py
 K4_TOL = 3e-6     # fused float32 states, as tests/test_fusion.py
 NLL_RTOL = 1e-4
 FIDELITY_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_fidelity.json")
+
+# BASELINE config #7, the scale-out case (BASELINE.md:41), as
+# results_round5/cli_config7_50k.log ran it: the classical 2-D dataset
+# generate_data_numpy(55555, 2, 0.1, 42), a 0.1 held-out split, a regional
+# partition over 64 agents (49,999 train rows, shards of 717-844), chebyshev
+# 10 qubits / 2 layers (P = 70) under a projected Matérn kernel, rho = L =
+# 100, noise 0.1, streamed gradients, CV on a 512-row subsample, then the CG
+# posterior. The fixture problem keeps every width and cuts depth: 1,111
+# samples over 8 agents.
+C7_SAMPLES, C7_AGENTS, C7_NMAX = 55555, 64, 844
+C7_FIX_SAMPLES, C7_FIX_AGENTS, C7_FIX_ITERS = 1111, 8, 3
+C7_TEST_SPLIT, C7_SEED, C7_QUBITS, C7_LAYERS = 0.1, 42, 10, 2
+C7_CV_MAX, C7_ITERS = 512, 2
+C7_STEP_ROWS = 2 * C7_AGENTS * C7_NMAX   # K3's batch per parameter: +-h of every agent
+C7_ZERO_ROWS = C7_AGENTS * C7_NMAX       # K3's batch for the Gram at wrap(z)
+C7_NLL_ITER1 = 90126.2668   # results_round5/cli_config7_50k.log:71, the JAX package's
+C7_CV_ITER1 = 104.8780      # iteration 1 from the same seeded initial state
+C7_DENSE_ROWS, C7_TEST_ROWS = 4096, 512
+K3_TOL = 8e-6     # fused float32 features, as tests/test_fusion.py:63
+CONFIG7_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_config7.json")
 
 
 def array_digest(a) -> str:
@@ -185,15 +241,125 @@ def fidelity_problem(dev):
     return spec, X, Y, theta, X_tr, Y_tr, X_te, Y_te, splits
 
 
-def check_fidelity_run(res, ref, iters: int, what: str):
+def config7_spec():
+    from dqgp_tpu_torch.models.circuits import build_circuit
+    from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
+
+    return QuantumKernelSpec(circuit=build_circuit("chebyshev", C7_QUBITS, 2, C7_LAYERS),
+                             kernel_type="projected", outer_kernel="matern")
+
+
+def config7_problem(n_samples: int, n_agents: int):
+    """Config #7's classical dataset, split and partitioned as the CLI's
+    classical mode does (cli.py:342-378). Returns (X_tr, Y_tr, X_te, Y_te,
+    splits) as float64 numpy."""
+    import contextlib
+    import io
+
+    from dqgp_tpu_torch.data import (
+        generate_data_numpy, split_data_numpy, train_test_split_np)
+
+    X, Y = generate_data_numpy(n_samples, 2, 0.1, C7_SEED)
+    X_tr, X_te, Y_tr, Y_te, _, _ = train_test_split_np(X, Y, C7_TEST_SPLIT, C7_SEED)
+    with contextlib.redirect_stdout(io.StringIO()):
+        splits = split_data_numpy(X_tr, Y_tr, n_agents, "regional", 1.0, C7_SEED)
+    return X_tr, Y_tr, X_te, Y_te, splits
+
+
+def config7_train_config(iters: int, **kw):
+    """The driver settings of config #7's run (examples/scale_out_training.py:
+    89,96 sets compute_cond=False; the host condition numbers are not
+    ported)."""
+    from dqgp_tpu_torch.driver import TrainConfig
+
+    return TrainConfig(max_iter=iters, seed=C7_SEED, grad_method="streamed",
+                       cv_max_samples=C7_CV_MAX, compute_cond=False, **kw)
+
+
+def config7_test_nlpd_bar(ref) -> float:
+    """max(0.05, 2 |JAX f32 - JAX f64 features|) for the CG test NLPD; both
+    packages solve in float64 here (the port on every device)."""
+    t_ref = ref["test_metrics"]["nlpd"]
+    return max(NLPD_TOL, 2 * abs(t_ref - ref["test_nlpd_f64_features"]))
+
+
+C7_NLL_RESCORES = ("agent_nll_f64_features", "agent_nll_eager_f32", "agent_nll_fused_f32")
+
+
+def config7_nll_bars(ref) -> np.ndarray:
+    """Per-iteration agent-NLL bars: max(1e-4, 2 x the JAX package's own
+    spread), the spread being the largest relative difference of that
+    iteration between its step's agent NLLs and the same NLLs re-scored at
+    the same z from float64 features, from its eager float32 engine and from
+    the float32 gate-fused program (the one K3 runs), where the fixture
+    holds them. On these 10-qubit Matérn Grams a last-ulp feature change
+    moves an agent NLL by up to ~5e-4 relative."""
+    nll = np.array(ref["agent_nll"])
+    spread = np.max([(np.abs(nll - np.array(ref[k])) / np.abs(nll)).max(axis=1)
+                     for k in C7_NLL_RESCORES if k in ref], axis=0)
+    return np.maximum(NLL_RTOL, 2 * spread)
+
+
+def config7_agent_nll_at(spec, splits, z_traj, dev, noise_std: float) -> np.ndarray:
+    """The port's agent NLLs (len(z_traj), A) at the given consensus vectors:
+    the step's Gram at wrap(z) for all agents in one feature call, then the
+    masked float64 NLL, as the streamed step forms them.
+
+    From iteration 2 on, two runs' z trajectories part within the z bar (a
+    last-ulp feature change moves a 4-dp-rounded gradient), and an agent NLL
+    at a different z differs by more than the feature engines do. Scored at
+    the reference's own z, the agent NLLs compare the engines alone."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.models.gp.posterior import masked_nll_core
+    from dqgp_tpu_torch.parallel.consensus import agent_grams, make_agent_batch
+
+    batch = make_agent_batch(splits, dev)
+    out = []
+    for z in z_traj:
+        z32 = M.wrap(torch.as_tensor(z, dtype=torch.float64, device=dev)).to(torch.float32)
+        K = agent_grams(spec, batch.X, z32[None])[:, 0].to(torch.float64)
+        res, _ = masked_nll_core(K, batch.Y.to(torch.float64), batch.mask.to(torch.float64),
+                                 noise_std, compute_cond=False)
+        out.append(res.nll.cpu().numpy())
+    return np.array(out)
+
+
+def check_config7_fixture(res, metrics, ref, iters: int, nll_at_ref_z):
+    """Hold a fixture-problem run (its first ``iters`` iterations), the
+    port's agent NLLs at the reference's z trajectory (``nll_at_ref_z``,
+    from ``config7_agent_nll_at``) and its CG test metrics (None to skip) to
+    tests/fixtures/torch_port_config7.json; returns (z dev, worst NLL rel
+    dev, worst CV-NLPD dev / bar, test NLPD dev / bar)."""
+    z_dev, nll_dev, cv_ratio = check_fidelity_run(res, ref, iters, "config #7 fixture",
+                                                  config7_nll_bars(ref), nll=nll_at_ref_z)
+    if metrics is None:
+        return z_dev, nll_dev, cv_ratio, float("nan")
+    t_ref = ref["test_metrics"]["nlpd"]
+    t_bar = config7_test_nlpd_bar(ref)
+    t_ratio = abs(metrics["nlpd"] - t_ref) / t_bar
+    check(np.isfinite(metrics["nlpd"]) and t_ratio <= 1.0,
+          f"config #7 fixture test NLPD {metrics['nlpd']} vs JAX f32 {t_ref} beyond {t_bar}")
+    return z_dev, nll_dev, cv_ratio, t_ratio
+
+
+def check_fidelity_run(res, ref, iters: int, what: str, nll_rtol=NLL_RTOL, nll=None):
     """Hold a fidelity training run to the fixture's first ``iters``
-    iterations; returns (z dev, worst NLL rel dev, worst CV-NLPD dev / bar)."""
+    iterations; returns (z dev, worst NLL rel dev, worst CV-NLPD dev / bar).
+    ``nll_rtol`` is one bar, or one per iteration; ``nll`` (iters, A) are
+    the agent NLLs held to the fixture's, by default the run's own."""
     check(res.iterations == iters, f"{what}: stopped after {res.iterations} != {iters}")
     z = np.array([h["consensus_params"] for h in res.cv_history])
     z_dev = float(np.abs(z - np.array(ref["z_trajectory"][:iters])).max())
-    nll = np.array([h["agent_losses"] for h in res.nll_history])
+    if nll is None:
+        nll = np.array([h["agent_losses"] for h in res.nll_history])
+    nll = np.asarray(nll)[:iters]
     nll_ref = np.array(ref["agent_nll"][:iters])
-    nll_dev = float((np.abs(nll - nll_ref) / np.abs(nll_ref)).max())
+    nll_bar = np.broadcast_to(np.asarray(nll_rtol, np.float64).reshape(-1, 1)[:iters],
+                              nll_ref.shape)
+    nll_rel = np.abs(nll - nll_ref) / np.abs(nll_ref)
+    nll_dev = float(nll_rel.max())
     cv = np.array([h["consensus_cv_score"] for h in res.cv_history])
     cv32 = np.array(ref["cv_nlpd"][:iters])
     cv_bar = np.maximum(NLPD_TOL, 2 * np.abs(cv32 - np.array(ref["cv_nlpd_f64_features"][:iters])))
@@ -201,10 +367,258 @@ def check_fidelity_run(res, ref, iters: int, what: str):
     check(bool(np.all(np.isfinite(nll))) and bool(np.all(np.isfinite(cv))),
           f"{what}: non-finite NLL or CV score")
     check(z_dev <= Z_TOL, f"{what}: z trajectory deviates {z_dev} > {Z_TOL}")
-    check(nll_dev <= NLL_RTOL, f"{what}: agent NLL deviates rel {nll_dev} > {NLL_RTOL}")
+    check(bool(np.all(nll_rel <= nll_bar)), f"{what}: agent NLLs deviate "
+          f"{nll_rel.max(axis=1).tolist()} (relative, per iteration) beyond the bars "
+          f"{np.asarray(nll_rtol).tolist()}")
     check(cv_ratio <= 1.0, f"{what}: CV-NLPD {cv.tolist()} vs JAX f32 {cv32.tolist()} "
           f"beyond the bars {cv_bar.tolist()}")
     return z_dev, nll_dev, cv_ratio
+
+
+def _allclose(got, want, rtol: float, atol: float) -> float:
+    """The worst of |got - want| / (atol + rtol |want|) (<= 1 passes)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+def config7_phases(dev, smi: str, rand_angles) -> dict:
+    """Phases 10-12: K3 against its plain version, the config #7 path
+    (fixture problem, then full size) and its times. Returns K3's entry of
+    the kernels record."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.data import generate_data_numpy
+    from dqgp_tpu_torch.driver import init_admm_state, train
+    from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
+    from dqgp_tpu_torch.models.gp.cv import cv_fold_scores_impl, kfold_pad_indices
+    from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
+    from dqgp_tpu_torch.models.gp.posterior import masked_nll_and_grad, predict_quantum_gp
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import (
+        gram_and_shift_grads, kernel_features)
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.ops.fusion import fuse_circuit, packed_inputs
+    from dqgp_tpu_torch.parallel import blocked as BL
+    from dqgp_tpu_torch.parallel.consensus import (
+        make_admm_step, make_agent_batch, streamed_nll_and_grad)
+
+    spec = config7_spec()
+    circuit = spec.circuit
+    P = spec.num_parameters
+    program = fuse_circuit(circuit)
+    check((circuit.num_gates, P, len(program.ops), program.n_rows) == (70, 70, 32, 260),
+          "config #7's circuit is not G=70, P=70, 32 fused ops, R=260")
+
+    # 10. K3 vs its plain versions on the card -------------------------------
+    t0 = time.time()
+    n_train_full = C7_SAMPLES - int(np.ceil(C7_TEST_SPLIT * C7_SAMPLES))
+    cases = [(build_circuit(enc, n, 2, 2), B) for enc in ENCODING_TYPES
+             for n in STATES_QUBITS for B in (1, 130, C7_STEP_ROWS)]
+    cases += [(circuit, B) for B in (C7_STEP_ROWS, C7_ZERO_ROWS, C7_CV_MAX,
+                                     n_train_full, C7_TEST_ROWS)]
+    worst = worst_unfused = 0.0
+    for c, B in cases:
+        a = rand_angles(c, B)
+        got = K.pauli_features_from_angles_fused(c, a)
+        torch.cuda.synchronize()
+        check(got.shape == (B, 3 * c.num_qubits) and got.dtype == torch.float32,
+              f"K3 shape {tuple(got.shape)} {got.dtype}")
+        e = float((got - K.pauli_features_fused_reference(c, a)).abs().max())
+        eu = float((got - K.pauli_features_reference(c, a)).abs().max())
+        check(np.isfinite(e) and e <= K3_TOL and np.isfinite(eu) and eu <= K3_TOL,
+              f"K3 vs plain {c.name} {c.num_qubits}q B={B}: max abs diff {e} (fused), "
+              f"{eu} (unfused) > {K3_TOL}")
+        worst, worst_unfused = max(worst, e), max(worst_unfused, eu)
+        del a, got
+    print(f"phase 10 K3 vs plain ({time.time() - t0:.2f} s): {len(cases)} cases, max abs "
+          f"diff {worst:.3e} vs the plain fused engine, {worst_unfused:.3e} vs K1's plain "
+          f"unfused version (tol {K3_TOL})", flush=True)
+
+    # 11a. the fixture problem: config #7's width, cut depth ------------------
+    with open(CONFIG7_FIXTURE) as f:
+        ref = json.load(f)
+    t0 = time.time()
+    X, Y = generate_data_numpy(C7_FIX_SAMPLES, 2, 0.1, C7_SEED)
+    check(array_digest(X) == ref["problem"]["x_sha256"]
+          and array_digest(Y) == ref["problem"]["y_sha256"], "fixture dataset differs")
+    X_tr, Y_tr, X_te, Y_te, splits = config7_problem(C7_FIX_SAMPLES, C7_FIX_AGENTS)
+    check([len(x) for x, _ in splits] == ref["problem"]["shard_sizes"], "shard sizes differ")
+    cfg = config7_train_config(C7_FIX_ITERS, verbose=False)
+    K.reset_launch_counts()
+    res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
+    predict = BL.make_cg_predictor(spec, X_tr, Y_tr, torch.as_tensor(res.z, device=dev),
+                                   cfg.noise_std)
+    mean, var = predict(X_te)
+    metrics = evaluate_predictions(Y_te, mean, var)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
+    want_k3 = C7_FIX_ITERS * (P + 2) + rescores + 2
+    check(counts["K3"] == want_k3 and sum(counts.values()) == counts["K3"],
+          f"fixture launches {counts}: want K3 = {C7_FIX_ITERS}*({P}+2) + {rescores} + 2 "
+          f"and no other kernel")
+    check(mean.shape == (len(X_te),) and bool(torch.isfinite(mean).all())
+          and bool(torch.isfinite(var).all()), "non-finite fixture prediction")
+    # the agent NLLs at JAX's own z (not the main path's launches: the counts
+    # were read above); the run's own, at its own z, are printed beside them
+    nll_at_ref = config7_agent_nll_at(spec, splits, ref["z_trajectory"][:C7_FIX_ITERS], dev,
+                                      cfg.noise_std)
+    own = np.array([h["agent_losses"] for h in res.nll_history])
+    own_dev = (np.abs(own - ref["agent_nll"]) / np.abs(ref["agent_nll"])).max(axis=1)
+    z_dev, nll_dev, cv_ratio, t_ratio = check_config7_fixture(res, metrics, ref, C7_FIX_ITERS,
+                                                              nll_at_ref)
+    print(f"phase 11a config #7 fixture problem ({time.time() - t0:.2f} s): "
+          f"{len(X_tr)} train rows over {C7_FIX_AGENTS} agents, {C7_FIX_ITERS} streamed ADMM "
+          f"iterations + CG predict of {len(X_te)} rows; launches {counts} (K3 = "
+          f"{C7_FIX_ITERS}*({P}+2) + {rescores} + 2); z dev {z_dev:.1e} (tol {Z_TOL}), worst "
+          f"agent NLL rel dev at JAX's z {nll_dev:.2e} (bars per iteration "
+          f"{[f'{b:.2e}' for b in config7_nll_bars(ref)]}; at the run's own z "
+          f"{[f'{d:.2e}' for d in own_dev]}), worst CV-NLPD dev / bar "
+          f"{cv_ratio:.3f}, test NLPD {metrics['nlpd']:.4f} vs JAX {ref['test_metrics']['nlpd']:.4f} "
+          f"(dev / bar {t_ratio:.3f}); CG alpha {predict.alpha_result.iterations} iterations "
+          f"(JAX f64 {ref['cg']['alpha_iterations']})", flush=True)
+
+    # 11b. config #7 at full size ---------------------------------------------
+    t0 = time.time()
+    X_tr, Y_tr, X_te, Y_te, splits = config7_problem(C7_SAMPLES, C7_AGENTS)
+    sizes = [len(x) for x, _ in splits]
+    check(len(X_tr) == n_train_full == 49999 and sizes[:4] == [795, 787, 750, 764]
+          and (min(sizes), max(sizes)) == (717, C7_NMAX),
+          f"config #7 partition differs from the log's: {len(X_tr)} rows, {sizes[:4]}...")
+    cfg = config7_train_config(C7_ITERS, verbose=False)
+    K.reset_launch_counts()
+    t1 = time.time()
+    res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.time() - t1
+    train_counts = K.launch_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    predict = BL.make_cg_predictor(spec, X_tr, Y_tr, torch.as_tensor(res.z, device=dev),
+                                   cfg.noise_std)
+    ev[1].record()
+    mean, var = predict(X_te[:C7_TEST_ROWS])
+    ev[2].record()
+    metrics = evaluate_predictions(Y_te[:C7_TEST_ROWS], mean, var)
+    torch.cuda.synchronize()
+    setup_ms, predict_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    counts = K.launch_counts()
+    rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
+    # per step: the Gram at wrap(z) + one +-h launch per parameter; per CV
+    # pass: one; per predictor: the training rows, then the eval rows
+    want_train = C7_ITERS * (1 + P) + C7_ITERS + rescores
+    check(train_counts["K3"] == want_train and counts["K3"] == want_train + 2
+          and sum(counts.values()) == counts["K3"],
+          f"config #7 launches {train_counts} / {counts}: want K3 = {C7_ITERS}*(1+{P}) + "
+          f"{C7_ITERS} + {rescores} in training, + 2 with the predictor, and no K1")
+    nll1 = res.nll_history[0]["total_nll"]
+    cv1 = res.cv_history[0]["consensus_cv_score"]
+    nll_rel = abs(nll1 - C7_NLL_ITER1) / C7_NLL_ITER1
+    z = np.asarray(res.z)
+    check(np.all(np.isfinite(z)) and all(np.all(np.isfinite(h["agent_losses"]))
+                                         for h in res.nll_history),
+          "non-finite z or agent NLL")
+    check(mean.shape == (C7_TEST_ROWS,) and bool(torch.isfinite(mean).all())
+          and bool(torch.isfinite(var).all()), "non-finite config #7 prediction")
+    print(f"phase 11b config #7 at full size ({time.time() - t0:.2f} s): {len(X_tr)} train "
+          f"rows over {C7_AGENTS} agents (Nmax {max(sizes)}), {C7_ITERS} streamed ADMM "
+          f"iterations in {train_s:.2f} s, CG predictor set-up {setup_ms / 1e3:.2f} s + "
+          f"predict of {C7_TEST_ROWS} rows {predict_ms / 1e3:.2f} s; launches {counts} (K3 = {C7_ITERS}*(1+{P}) + {C7_ITERS} + "
+          f"{rescores} + 2); iteration 1 nll_sum {nll1:.4f} vs JAX {C7_NLL_ITER1} (rel dev "
+          f"{nll_rel:.2e}, tol 1e-3), CV-NLPD {cv1:.4f} vs JAX {C7_CV_ITER1}; nll_sum "
+          f"{[round(h['total_nll'], 4) for h in res.nll_history]}; CG alpha "
+          f"{predict.alpha_result.iterations} iterations (residual "
+          f"{predict.alpha_result.residual_norm:.2e}), variance "
+          f"{[(r.iterations, f'{r.residual_norm:.2e}') for r in predict.variance_results]}; "
+          f"test NLPD {metrics['nlpd']:.4f}, R2 {metrics['r2']:.4f}", flush=True)
+    check(nll_rel <= 1e-3, f"iteration 1 nll_sum {nll1} vs {C7_NLL_ITER1}: rel {nll_rel}")
+
+    # streamed = central on 2 agents at iteration 1's z (not the main path's
+    # launches: the counts were read above)
+    theta0, psi0, _ = init_admm_state(C7_AGENTS, P, cfg.seed, cfg.rho)
+    xi = torch.as_tensor(theta0 + psi0 / cfg.rho)
+    phase = 2.0 * np.pi * xi / M.PERIOD
+    z1 = M.round4(M.circular_mean_from_sums(torch.cos(phase).sum(0), torch.sin(phase).sum(0)))
+    check(np.allclose(z1.numpy(), res.cv_history[0]["consensus_params"], rtol=0, atol=1e-12),
+          "iteration 1's z differs from the run's")
+    z32 = M.wrap(z1).to(torch.float32).to(dev)
+    b2 = make_agent_batch(splits[:2], dev)
+    streamed = streamed_nll_and_grad(spec, b2, z32, cfg.shift_value, cfg.noise_std,
+                                     compute_cond=False)
+    Kc, dKc = gram_and_shift_grads(spec, b2.X, z32, cfg.shift_value)
+    central = masked_nll_and_grad(Kc.double(), dKc, b2.Y, b2.mask, cfg.noise_std,
+                                  compute_cond=False)
+    del Kc, dKc
+    g_scale = float(central.grad.abs().max())
+    g_dev = float((streamed.grad - central.grad).abs().max()) / g_scale
+    print(f"phase 11b streamed vs central gradient on 2 agents at iteration 1's z: max "
+          f"|diff| / max |g| = {g_dev:.2e} (tol 1e-6), NLL rel dev "
+          f"{float(((streamed.nll - central.nll) / central.nll).abs().max()):.2e}", flush=True)
+    check(g_dev <= 1e-6, f"streamed gradient deviates {g_dev} from the central one")
+
+    # the CG posterior against the dense float64 one on the first 4,096 rows
+    z_t = torch.as_tensor(res.z, device=dev)
+    Xd, Yd, Xq = X_tr[:C7_DENSE_ROWS], Y_tr[:C7_DENSE_ROWS], X_te[:C7_TEST_ROWS]
+    m_cg, v_cg = BL.make_cg_predictor(spec, Xd, Yd, z_t, cfg.noise_std)(Xq)
+    m_d, v_d = predict_quantum_gp(spec, torch.as_tensor(Xd, device=dev),
+                                  torch.as_tensor(Yd, device=dev),
+                                  torch.as_tensor(Xq, device=dev), z_t,
+                                  noise_std=cfg.noise_std)
+    m_ratio = _allclose(m_cg.cpu(), m_d.cpu(), 1e-3, 1e-5)
+    v_ratio = _allclose(v_cg.cpu(), v_d.cpu(), 1e-2, 1e-5)
+    print(f"phase 11b CG vs dense float64 posterior on {C7_DENSE_ROWS} training rows, "
+          f"{C7_TEST_ROWS} test rows: worst mean dev / bar {m_ratio:.3f} (rtol 1e-3, atol "
+          f"1e-5), worst variance dev / bar {v_ratio:.3f} (rtol 1e-2, atol 1e-5)", flush=True)
+    check(m_ratio <= 1.0 and v_ratio <= 1.0, "CG posterior disagrees with the dense one")
+
+    # 12. times ----------------------------------------------------------------
+    t0 = time.time()
+    step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
+                          compute_cond=False, grad_method="streamed")
+    batch = make_agent_batch(splits, dev)
+    theta, psi = torch.as_tensor(res.theta, device=dev), torch.as_tensor(res.psi, device=dev)
+    sel = np.random.RandomState(cfg.seed).choice(len(X_tr), C7_CV_MAX, replace=False)
+    Xc, Yc = torch.as_tensor(X_tr[sel], device=dev), torch.as_tensor(Y_tr[sel], device=dev)
+    folds = kfold_pad_indices(C7_CV_MAX, cfg.cv_folds, cfg.seed, dev)
+    out = step(theta, psi, batch)
+    step_ms = _cuda_time_ms(lambda: step(theta, psi, batch), 2)
+    cv_ms = _cuda_time_ms(lambda: cv_fold_scores_impl(spec, Xc, Yc, out.z, *folds,
+                                                      noise_std=cfg.noise_std), 5)
+
+    a = rand_angles(circuit, C7_STEP_ROWS)
+    k3_ms, k1_ms, plain_ms = _alternate_ms(
+        [lambda: K.pauli_features_from_angles_fused(circuit, a),
+         lambda: K.pauli_features_from_angles(circuit, a),
+         lambda: K.pauli_features_fused_reference(circuit, a)], 5)
+    packed = packed_inputs(program, a)
+    k3_launch_ms = _cuda_time_ms(lambda: K.pauli_features_from_packed(circuit, packed), 10)
+    del a, packed
+
+    # the predictor's parts, in its float64 (its set-up and predict were
+    # timed in 11b; the alpha solve is the set-up's rest)
+    X32 = torch.as_tensor(X_tr, device=dev).to(torch.float32)
+    feats_ms = _cuda_time_ms(lambda: kernel_features(spec, X32, z_t), 3)
+    F = kernel_features(spec, X32, z_t).to(torch.float64)
+    chol_ms = _cuda_time_ms(lambda: BL.pivoted_cholesky(spec, F, 64), 2)
+    ones = torch.ones(len(X_tr), dtype=torch.float64, device=dev)
+    v1 = torch.randn((len(X_tr), 1), dtype=torch.float64, device=dev)
+    v512 = torch.randn((len(X_tr), C7_TEST_ROWS), dtype=torch.float64, device=dev)
+    mv_ms, mv512_ms = _alternate_ms([lambda: BL.gram_matvec(spec, F, v1, ones, 4096),
+                                     lambda: BL.gram_matvec(spec, F, v512, ones, 4096)], 2)
+    print(f"phase 12 times ({time.time() - t0:.2f} s) [{smi}]: config #7 ADMM iteration "
+          f"= step {step_ms:.1f} ms + CV {cv_ms:.2f} ms ({C7_AGENTS} agents, Nmax {C7_NMAX}, "
+          f"CV on {C7_CV_MAX} rows); at B={C7_STEP_ROWS} n={C7_QUBITS} G={circuit.num_gates}: "
+          f"K3 {k3_ms:.3f} ms (its launch alone on rows packed ahead {k3_launch_ms:.3f} ms) "
+          f"vs K1 {k1_ms:.3f} ms vs plain fused {plain_ms:.3f} ms; CG predictor set-up on "
+          f"{len(X_tr)} rows {setup_ms:.1f} ms = features {feats_ms:.3f} ms + rank-64 pivoted "
+          f"Cholesky {chol_ms:.2f} ms + alpha solve ({predict.alpha_result.iterations} "
+          f"iterations) the rest; predict {C7_TEST_ROWS} rows {predict_ms:.1f} ms; float64 "
+          f"gram_matvec at N={len(X_tr)}: 1 right-hand side {mv_ms:.2f} ms "
+          f"({len(X_tr) ** 2 / (mv_ms * 1e-3):.3e} entries/s), {C7_TEST_ROWS} {mv512_ms:.2f} ms",
+          flush=True)
+    return {"launches": counts["K3"], "max_abs_err": worst, "ms": k3_ms,
+            "plain_ms": plain_ms, "k1_ms": k1_ms, "launch_only_ms": k3_launch_ms,
+            "max_abs_err_vs_unfused": worst_unfused}
 
 
 def main() -> int:
@@ -243,7 +657,10 @@ def main() -> int:
     reports = build_kernels(K.SOURCES)
     for src in K.SOURCES:
         K._library(src)
-    print(f"phase 2 build ({time.time() - t0:.2f} s): " + " | ".join(reports), flush=True)
+    k3_tpb, k3_smem = K.fused_features_launch_config(C7_QUBITS)
+    print(f"phase 2 build ({time.time() - t0:.2f} s): " + " | ".join(reports)
+          + f" | K3 at config #7's circuit ({C7_QUBITS} qubits): {k3_tpb} threads per "
+          f"block, {k3_smem} B dynamic shared memory", flush=True)
 
     # 3. K1 vs plain on the card ----------------------------------------------
     main_circuit = build_circuit("chebyshev", NUM_QUBITS, NUM_FEATURES, NUM_LAYERS)
@@ -518,6 +935,8 @@ def main() -> int:
           f"fidelity Gram {fgram_ms:.4f} ms "
           f"({len(X_tr) ** 2 / (fgram_ms * 1e-3):.3e} entries/s)", flush=True)
 
+    k3 = config7_phases(dev, smi, rand_angles)
+
     print(json.dumps({"kernels": [
         {"name": "pauli_features (K1)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features.cu",
@@ -531,6 +950,9 @@ def main() -> int:
          "plain_ms": k2_plain_ms, "launches_f64": fcounts["K2_f64"],
          "max_abs_err_f64": err["K2_f64"], "ms_f64": k2_64_ms,
          "plain_ms_f64": k2_64_plain_ms},
+        {"name": "pauli_features_fused (K3)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/pauli_features_fused.cu",
+         "replaces": "dqgp_tpu/ops/pallas_circuit.py:330", **k3},
         {"name": "states_fused (K4)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states_fused.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:278",

@@ -11,10 +11,12 @@ exhaustion, or max_iter; on the latter two the best-CV z is restored.
 
 Nothing here catches a failure of device work: an exception propagates and
 the run fails (the JAX driver's fallbacks to other dispatch modes have no
-counterpart here). The GP side is direct float64 and the gradient the
-central difference; the JAX driver's other dtype modes, gradient methods,
-host condition numbers, CV subsampling, meshes and chained dispatch are not
-ported.
+counterpart here). The GP side is direct float64. The gradient is the
+central difference, materialized ("central") or streamed one parameter at a
+time ("streamed", the scale-out path); CV can model-select on a seeded
+subsample of the training rows (``cv_max_samples``), as the JAX driver does.
+The JAX driver's other dtype modes, its "autodiff" gradient, host condition
+numbers, meshes and chained dispatch are not ported.
 """
 
 from __future__ import annotations
@@ -56,7 +58,12 @@ class TrainConfig:
                                     # eigvalsh of each agent's step Gram, on
                                     # the step's device (the JAX "device" mode)
     psd_fallback: bool = True       # eigh-pinv rescue of failed factorizations
+    grad_method: str = "central"    # "central" (parity) | "streamed" (parity,
+                                    # O(A N^2) memory)
     run_cv: bool = True             # per-iteration k-fold CV model selection
+    cv_max_samples: Optional[int] = None  # subsample X_train for CV beyond
+                                    # this size (the dense fold Grams are
+                                    # O(n^2); scale-out runs cap the CV set)
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 10
     verbose: bool = True
@@ -168,6 +175,7 @@ def train(
         spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
         shift_value=cfg.shift_value, parity_round=cfg.parity_round,
         compute_cond=cfg.compute_cond, psd_fallback=cfg.psd_fallback,
+        grad_method=cfg.grad_method,
     )
 
     if resume_from:
@@ -185,8 +193,17 @@ def train(
     theta = torch.as_tensor(theta, dtype=torch.float64, device=device)
     psi = torch.as_tensor(psi, dtype=torch.float64, device=device)
 
-    X_t = torch.as_tensor(np.asarray(X_train), device=device)
-    Y_t = torch.as_tensor(np.asarray(Y_train), device=device)
+    X_cv, Y_cv = np.asarray(X_train), np.asarray(Y_train)
+    if cfg.run_cv and cfg.cv_max_samples and len(X_cv) > cfg.cv_max_samples:
+        # the dense fold Grams are O(n^2): model-select on a seeded subsample,
+        # drawn as dqgp_tpu/driver.py:521-529 draws it
+        sel = np.random.RandomState(cfg.seed).choice(
+            len(X_cv), cfg.cv_max_samples, replace=False)
+        X_cv, Y_cv = X_cv[sel], Y_cv[sel]
+        log(f"CV model selection on a {cfg.cv_max_samples}-sample subset "
+            f"of {len(X_train)} training rows")
+    X_t = torch.as_tensor(X_cv, device=device)
+    Y_t = torch.as_tensor(Y_cv, device=device)
 
     nll_history: List[Dict] = []
     cv_history: List[Dict] = []
@@ -204,7 +221,7 @@ def train(
         if cfg.run_cv:
             fold_scores = [_to_np(s) for s in cv_fold_scores_impl(
                 spec, X_t, Y_t, out.z,
-                *kfold_pad_indices(len(X_train), cfg.cv_folds, cfg.seed + it, device),
+                *kfold_pad_indices(len(X_cv), cfg.cv_folds, cfg.seed + it, device),
                 noise_std=float(cfg.noise_std),
             )]
         theta, psi = out.theta, out.psi

@@ -8,13 +8,15 @@ parameters wrapped to the torus before evaluation
 (agent_riemannian.py:38-41, 247-275).
 
 Device policy, mirroring the JAX package's dispatch: projected features
-with per-qubit Pauli measurements run the Pauli-feature kernel (K1);
+with per-qubit Pauli measurements run the Pauli-feature kernel (K1), or the
+fused-program Pauli-feature kernel (K3) where
+``config.fusion_enabled(n, "features")`` (at >= 10 qubits by default);
 fidelity states and full Pauli strings run the states kernel (K2), or the
 fused-program states kernel (K4) where ``config.fusion_enabled(n, "states")``;
-float64 angles run K1's and K2's float64 instantiations. Full Pauli-string
-expectations are plain torch on the states, as they are XLA in the JAX
-package. On the card, the fused Pauli-feature path (K3) is not ported and
-raises. On the CPU every wrapper runs its kernel's plain version.
+float64 angles run K1's and K2's float64 instantiations (the fused kernels
+are float32 only, as in the JAX package). Full Pauli-string expectations are
+plain torch on the states, as they are XLA in the JAX package. On the CPU
+every wrapper runs its kernel's plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ...manifold import PERIOD
 from ...ops.circuit import Circuit
 from ...ops.cuda_circuit import (
     pauli_features_from_angles,
+    pauli_features_from_angles_fused,
     states_from_angles,
     states_from_angles_fused,
 )
@@ -104,10 +107,6 @@ def _measurement_selector(spec: QuantumKernelSpec) -> Tuple[str, ...]:
     return tuple(p.upper() for p in m)
 
 
-def _is_cuda(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
-
-
 def features_from_angles(spec: QuantumKernelSpec, angles: torch.Tensor) -> torch.Tensor:
     """Features from a precomputed (B, G) angle matrix.
 
@@ -120,12 +119,10 @@ def features_from_angles(spec: QuantumKernelSpec, angles: torch.Tensor) -> torch
     m = _measurement_selector(spec) if spec.kernel_type == "projected" else None
 
     if m is not None and all(len(s) == 1 for s in m):
-        if _is_cuda(angles) and not f64 and config.fusion_enabled(n, "features"):
-            raise NotImplementedError(
-                "fused Pauli features on CUDA need the fused Pauli-feature "
-                "kernel K3 (make_pallas_pauli_features_fused_fn), which is not "
-                "ported yet; set dqgp_tpu_torch.config.use_fusion = 'off'")
-        full = pauli_features_from_angles(spec.circuit, angles)
+        if not f64 and config.fusion_enabled(n, "features"):
+            full = pauli_features_from_angles_fused(spec.circuit, angles)
+        else:
+            full = pauli_features_from_angles(spec.circuit, angles)
         blocks = {"X": full[:, :n], "Y": full[:, n:2 * n], "Z": full[:, 2 * n:]}
         return torch.cat([blocks[c] for c in m], dim=-1)
 

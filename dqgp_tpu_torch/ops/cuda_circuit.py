@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written circuit kernels (K1, K2, K4).
+"""Wrappers of the hand-written circuit kernels (K1, K2, K3, K4).
 
 * ``pauli_features_from_angles`` (K1, ``csrc/pauli_features.cu``) — port of
   ``dqgp_tpu/ops/pallas_circuit.py::make_pallas_pauli_features_fn``: angles
@@ -6,9 +6,13 @@
 * ``states_from_angles`` (K2, ``csrc/states.cu``) — port of
   ``make_pallas_states_fn``: angles (B, G) -> states (B, 2^n), complex64
   from float32 angles, complex128 from float64 ones.
+* ``pauli_features_from_angles_fused`` (K3, ``csrc/pauli_features_fused.cu``)
+  — port of ``make_pallas_pauli_features_fused_fn``: the same Pauli features
+  through the gate-fused program of ``ops/fusion.py``, float32 only like the
+  Pallas kernel.
 * ``states_from_angles_fused`` (K4, ``csrc/states_fused.cu``) — port of
-  ``make_pallas_states_fused_fn``: the same states through the gate-fused
-  program of ``ops/fusion.py``, float32 only like the Pallas kernel.
+  ``make_pallas_states_fused_fn``: the states through the fused program,
+  float32 only. K3 and K4 share the op loop (``csrc/fused_program.cuh``).
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc at first
 use) and adds one to its launch count: ``.launches`` for the float32
@@ -36,7 +40,8 @@ from .statevector import pauli_features, state_from_angles
 SOURCE = "pauli_features.cu"        # K1
 STATES_SOURCE = "states.cu"         # K2
 FUSED_SOURCE = "states_fused.cu"    # K4
-SOURCES = (SOURCE, STATES_SOURCE, FUSED_SOURCE)
+FEATURES_FUSED_SOURCE = "pauli_features_fused.cu"  # K3
+SOURCES = (SOURCE, STATES_SOURCE, FEATURES_FUSED_SOURCE, FUSED_SOURCE)
 MAX_QUBITS = 10
 _SMEM_BUDGET = 200 * 1024  # bytes a block may take (the card allows 227 KB)
 
@@ -47,6 +52,7 @@ _SIGNATURES = {
     SOURCE: {"dqgp_pauli_features": _K1_ARGS, "dqgp_pauli_features_f64": _K1_ARGS},
     STATES_SOURCE: {"dqgp_states": _K2_ARGS, "dqgp_states_f64": _K2_ARGS},
     FUSED_SOURCE: {"dqgp_states_fused": [_vp] * 4 + [_i32] * 8 + [_i64, _vp]},
+    FEATURES_FUSED_SOURCE: {"dqgp_pauli_features_fused": [_vp] * 4 + [_i32] * 5 + [_i64, _vp]},
 }
 
 
@@ -131,6 +137,17 @@ def states_launch_config(num_qubits: int, row_len: int, real_bytes: int = 4,
                          f"and {fixed_bytes} B of tables exceeds the "
                          f"{_SMEM_BUDGET} B shared-memory budget of one block")
     return tpb, rstride, tpb | 1, smem(tpb)
+
+
+def fused_features_launch_config(num_qubits: int) -> tuple[int, int]:
+    """K3's (threads per block, dynamic smem bytes).
+
+    A block holds only its threads' states (re and im planes, 8 * 2^n bytes
+    a sample); the packed rows and the pattern matrix stay in device memory.
+    As many threads as fit the budget, at most 128: 25 at 10 qubits."""
+    per_sample = 8 << num_qubits
+    tpb = max(1, min(128, _SMEM_BUDGET // per_sample))
+    return tpb, tpb * per_sample
 
 
 def _check_angles(circuit: Circuit, angles: torch.Tensor, kernel: str,
@@ -294,17 +311,71 @@ def states_from_packed(circuit: Circuit, packed: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K3: Pauli features through the fused program
+# ---------------------------------------------------------------------------
+
+
+def pauli_features_fused_reference(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
+    """K3's plain PyTorch version: the fused program in complex64, then the
+    per-qubit X, Y, Z reduction."""
+    return pauli_features(state_from_angles_fused(circuit, angles, torch.complex64),
+                          circuit.num_qubits)
+
+
+def pauli_features_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
+    """angles (B, G) float32 -> Pauli features (B, 3n) float32 via the fused
+    program. The packed coefficient rows are built outside the kernel
+    (``fusion.packed_inputs``), as the JAX package builds them outside its
+    Pallas kernel."""
+    if not _is_cuda(angles):
+        return pauli_features_fused_reference(circuit, angles)
+    _check_angles(circuit, angles, "fused Pauli-feature", dtypes=(torch.float32,))
+    return pauli_features_from_packed(circuit, packed_inputs(fuse_circuit(circuit), angles))
+
+
+def pauli_features_from_packed(circuit: Circuit, packed: torch.Tensor) -> torch.Tensor:
+    """K3's launch on packed rows (B, R) float32 on the card -> features
+    (B, 3n) float32; counted in ``pauli_features_from_angles_fused.launches``.
+    The rows are transposed to (R, B) here, so the kernel's loads coalesce
+    (the Pallas wrapper transposes them to ``Pt`` likewise)."""
+    program = fuse_circuit(circuit)
+    if not _is_cuda(packed) or packed.dtype != torch.float32:
+        raise ValueError("packed rows must be a float32 CUDA tensor")
+    if packed.dim() != 2 or packed.shape[1] != program.n_rows:
+        raise ValueError(f"packed rows must be (B, {program.n_rows}), got "
+                         f"{tuple(packed.shape)}")
+    n = circuit.num_qubits
+    if not 1 <= n <= MAX_QUBITS:
+        raise ValueError(f"the CUDA fused Pauli-feature kernel supports 1 to "
+                         f"{MAX_QUBITS} qubits, got {n}")
+    B = packed.shape[0]
+    out = torch.empty((B, 3 * n), dtype=torch.float32, device=packed.device)
+    if B == 0:
+        return out
+    packed_t = packed.t().contiguous()
+    table, cmat = _fused_tables(circuit, packed.device)
+    tpb, smem = fused_features_launch_config(n)
+    _launch(FEATURES_FUSED_SOURCE, "dqgp_pauli_features_fused", packed.device,
+            packed_t.data_ptr(), cmat.data_ptr(), table.data_ptr(), out.data_ptr(),
+            B, n, len(program.ops), cmat.shape[1], tpb, smem)
+    pauli_features_from_angles_fused.launches += 1
+    return out
+
+
 pauli_features_from_angles.launches = 0
 pauli_features_from_angles.launches_f64 = 0
 states_from_angles.launches = 0
 states_from_angles.launches_f64 = 0
 states_from_angles_fused.launches = 0
+pauli_features_from_angles_fused.launches = 0
 
 _COUNTERS = {
     "K1": (pauli_features_from_angles, "launches"),
     "K1_f64": (pauli_features_from_angles, "launches_f64"),
     "K2": (states_from_angles, "launches"),
     "K2_f64": (states_from_angles, "launches_f64"),
+    "K3": (pauli_features_from_angles_fused, "launches"),
     "K4": (states_from_angles_fused, "launches"),
 }
 

@@ -5,13 +5,22 @@ agents are a written-out batch dimension: their padded, masked shards live on
 the device as (A, Nmax, ...) tensors, and one step runs
 
 1. z = round4(circular_mean(theta + psi/rho))   [consensus, from OLD state]
-2. for every agent at once: the 2P+1 shifted Grams at wrap(z) — all agents'
-   shifted angle rows go through ONE Pauli-feature kernel launch — the
-   masked float64 NLL and its gradient by the reference's h=pi/8 central
-   difference (the JAX package's "streamed" and "autodiff" gradients are
-   not ported), the proximal theta update and the dual psi update, with the
-   reference's 4-decimal rounding (main.py:2507-2555;
-   agent_riemannian.py:438, 485-486).
+2. for every agent at once: the Gram at wrap(z), the masked float64 NLL and
+   its gradient by the reference's h=pi/8 central difference, the proximal
+   theta update and the dual psi update, with the reference's 4-decimal
+   rounding (main.py:2507-2555; agent_riemannian.py:438, 485-486).
+
+Two ways to form the gradient (``grad_method``), as in the JAX package:
+
+* ``"central"`` materializes the 2P+1 shifted Grams of every agent, whose
+  angle rows all go through ONE circuit-kernel launch: O(A P N^2) memory.
+* ``"streamed"`` forms the Gram at wrap(z) first (one launch), then for each
+  parameter p the +h and -h shifted Grams of all agents (one launch of
+  2 A N rows), differences them in float32, upcasts, and contracts them with
+  the solve bracket at once: O(A N^2) live memory whatever P is.
+
+Both give the same gradient up to the order of the final sums. The JAX
+package's "autodiff" gradient is not ported.
 """
 
 from __future__ import annotations
@@ -24,8 +33,16 @@ import torch
 
 from .. import config
 from .. import manifold as M
-from ..models.gp.posterior import masked_nll_and_grad
-from ..models.kernels.quantum_kernel import QuantumKernelSpec, gram_and_shift_grads
+from ..models.gp.posterior import masked_nll_and_grad, masked_nll_core
+from ..models.kernels.quantum_kernel import (
+    QuantumKernelSpec,
+    features_from_angles,
+    gram_and_shift_grads,
+    gram_from_features,
+)
+from ..ops.statevector import angle_matrix
+
+GRAD_METHODS = ("central", "streamed")
 
 
 class AgentBatch(NamedTuple):
@@ -66,6 +83,47 @@ def make_agent_batch(agent_data_splits: Sequence[Tuple[np.ndarray, np.ndarray]],
     return AgentBatch(*(torch.as_tensor(a, device=device) for a in (X, Y, mask)))
 
 
+def agent_grams(spec: QuantumKernelSpec, X: torch.Tensor,
+                thetas: torch.Tensor) -> torch.Tensor:
+    """Grams (A, S, N, N) of every agent's shard X (A, N, D) at each of S
+    parameter vectors thetas (S, P), with all A*S*N angle rows in ONE
+    feature call; float32 like the features."""
+    angles = angle_matrix(spec.circuit, X[:, None], thetas, torch.float32)  # (A, S, N, G)
+    flat = features_from_angles(spec, angles.reshape(-1, angles.shape[-1]))
+    feats = flat.reshape(*angles.shape[:-1], flat.shape[-1])
+    return gram_from_features(spec, feats)
+
+
+def streamed_nll_and_grad(spec: QuantumKernelSpec, batch: AgentBatch,
+                          z32: torch.Tensor, h: float, noise_std: float, *,
+                          dtype=torch.float64, compute_cond: bool = True,
+                          fallback: bool = True):
+    """The masked NLL and its central-difference gradient, one parameter at
+    a time (dqgp_tpu/parallel/consensus.py:161-190).
+
+    z32 (P,) is the wrapped consensus vector in float32. The shifted vectors
+    are formed and wrapped in float32, as ``shift_parameter_batch`` forms
+    them, and each dK_p = (K_+ - K_-) / 2h is differenced in float32 before
+    the upcast, so the gradient is the central path's up to the order of
+    its sums."""
+    K = agent_grams(spec, batch.X, z32[None])[:, 0]
+    mask = batch.mask.to(dtype)
+    res, bracket = masked_nll_core(K.to(dtype), batch.Y.to(dtype), mask, noise_std,
+                                   compute_cond=compute_cond, fallback=fallback)
+    del K
+    m2 = mask[:, :, None] * mask[:, None, :]
+    bracket_t = bracket.transpose(-1, -2)  # g_p = 1/2 sum_ij bracket_ij dK_p,ji
+    eye = torch.eye(z32.shape[0], dtype=z32.dtype, device=z32.device)
+    grads = []
+    for p in range(z32.shape[0]):
+        pair = torch.remainder(torch.stack([z32 + h * eye[p], z32 - h * eye[p]]), M.PERIOD)
+        Kpm = agent_grams(spec, batch.X, pair)                         # (A, 2, N, N)
+        dk = ((Kpm[:, 0] - Kpm[:, 1]) / (2.0 * h)).to(dtype) * m2
+        del Kpm
+        grads.append(0.5 * torch.sum(bracket_t * dk, dim=(-2, -1)))
+    return res._replace(grad=torch.stack(grads, dim=-1))
+
+
 def admm_iteration(
     spec: QuantumKernelSpec,
     theta: torch.Tensor,
@@ -79,8 +137,14 @@ def admm_iteration(
     parity_round: bool = True,
     compute_cond: bool = True,
     psd_fallback: bool = True,
+    grad_method: str = "central",
 ) -> AgentStepOut:
-    """One bulk-synchronous ADMM round over all agents (theta, psi: (A, P))."""
+    """One bulk-synchronous ADMM round over all agents (theta, psi: (A, P));
+    ``grad_method`` is "central" or "streamed" (see the module docstring)."""
+    if grad_method not in GRAD_METHODS:
+        raise NotImplementedError(
+            f"grad_method {grad_method!r}: the port has {GRAD_METHODS} (the JAX "
+            f"package's 'autodiff' gradient is not ported)")
     dtype = config.GP_DTYPE
 
     xi = theta + psi / rho
@@ -93,11 +157,16 @@ def admm_iteration(
     # The shift batch is built and wrapped in float32, as the reference's
     # kernel path sees it; the f32 Grams are upcast only afterwards.
     z_manifold = M.wrap(z)
-    K, dK = gram_and_shift_grads(spec, batch.X, z_manifold.to(torch.float32),
-                                 shift_value)
-    res = masked_nll_and_grad(K.to(dtype), dK, batch.Y.to(dtype),
-                              batch.mask.to(dtype), noise_std,
-                              compute_cond=compute_cond, fallback=psd_fallback)
+    z32 = z_manifold.to(torch.float32)
+    if grad_method == "streamed":
+        res = streamed_nll_and_grad(spec, batch, z32, shift_value, noise_std,
+                                    dtype=dtype, compute_cond=compute_cond,
+                                    fallback=psd_fallback)
+    else:
+        K, dK = gram_and_shift_grads(spec, batch.X, z32, shift_value)
+        res = masked_nll_and_grad(K.to(dtype), dK, batch.Y.to(dtype),
+                                  batch.mask.to(dtype), noise_std,
+                                  compute_cond=compute_cond, fallback=psd_fallback)
     grad = M.round4(res.grad) if parity_round else res.grad
     theta_new = M.admm_update_theta(z_manifold, grad, psi, rho, L)
     psi_new = M.admm_update_psi(psi, theta_new, z_manifold, rho)

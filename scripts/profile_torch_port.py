@@ -1,13 +1,16 @@
 #!/usr/bin/env python
 """Where the time of one ADMM iteration of the PyTorch port goes, on a GPU.
 
-    python scripts/profile_torch_port.py                # both cells
+    python scripts/profile_torch_port.py                # every cell
     python scripts/profile_torch_port.py --cell fidelity --iters 5
 
-For each cell — ``northstar`` (chip_smoke.py phase 4's problem) and
-``fidelity`` (phase 7's, BASELINE config #5) — it warms up one iteration
-(the consensus step plus 5-fold CV, from the seeded initial state), then
-runs ``--iters`` more under ``torch.profiler`` and prints per iteration: the
+For each cell — ``northstar`` (chip_smoke.py phase 4's problem),
+``fidelity`` (phase 7's, BASELINE config #5) and ``config7`` (phase 11b's,
+BASELINE config #7 at full size: 64 agents, 49,999 rows, streamed
+gradients, CV on the 512-row subsample, no condition numbers) — it warms up
+one iteration (the consensus step plus 5-fold CV, from the seeded initial
+state), then runs ``--iters`` more (default 5, 1 for config7) under
+``torch.profiler`` and prints per iteration: the
 host wall time, the device time summed over kernels, the device's idle
 share (1 - device / wall), the kernel count, and the device time by kernel
 group. Needs a CUDA device; imports nothing of JAX.
@@ -22,12 +25,15 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
+CELLS = ("northstar", "fidelity", "config7")
 GROUPS = (  # first match wins
-    ("hand kernels (K1/K2/K4)", r"pauli_features_kernel|states_kernel|states_fused_kernel"),
+    ("hand kernels (K1-K4)",
+     r"pauli_features_kernel|pauli_features_fused_kernel|states_kernel|states_fused_kernel"),
     ("eigh (condition numbers)", r"syev|sytrd|stedc|ormtr|steqr|sterf|latrd"),
     ("triangular solves", r"trsm|trsv|trtri"),
     ("Cholesky", r"potrf|potrs"),
@@ -48,6 +54,10 @@ def _problem(cell, dev):
                                   cs.NUM_LAYERS),
             kernel_type="projected", outer_kernel="matern")
         return spec, X, Y, split_data_numpy(X, Y, cs.N_AGENTS, "regional"), 42
+    if cell == "config7":  # CV scores the seeded subsample, as the driver draws it
+        X_tr, Y_tr, _, _, splits = cs.config7_problem(cs.C7_SAMPLES, cs.C7_AGENTS)
+        sel = np.random.RandomState(cs.C7_SEED).choice(len(X_tr), cs.C7_CV_MAX, replace=False)
+        return cs.config7_spec(), X_tr[sel], Y_tr[sel], splits, cs.C7_SEED
     spec, _, _, _, X_tr, Y_tr, _, _, splits = cs.fidelity_problem(dev)
     return spec, X_tr, Y_tr, splits, cs.FID_SEED
 
@@ -61,8 +71,10 @@ def profile(cell, iters, dev):
     from dqgp_tpu_torch.parallel.consensus import make_admm_step, make_agent_batch
 
     spec, X, Y, splits, seed = _problem(cell, dev)
-    cfg = TrainConfig(verbose=False, seed=seed)
-    step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std)
+    cfg = (cs.config7_train_config(1, verbose=False) if cell == "config7"
+           else TrainConfig(verbose=False, seed=seed))
+    step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
+                          compute_cond=cfg.compute_cond, grad_method=cfg.grad_method)
     batch = make_agent_batch(splits, dev)
     Xt, Yt = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
     theta, psi, _ = init_admm_state(len(splits), spec.num_parameters, seed, cfg.rho)
@@ -105,8 +117,9 @@ def profile(cell, iters, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cell", choices=("northstar", "fidelity", "both"), default="both")
-    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--cell", choices=CELLS + ("all",), default="all")
+    ap.add_argument("--iters", type=int, default=None,
+                    help="profiled iterations (default 5, 1 for config7)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -115,8 +128,8 @@ def main() -> int:
 
     config.set_precision_policy()
     dev = torch.device("cuda", 0)
-    for cell in (("northstar", "fidelity") if args.cell == "both" else (args.cell,)):
-        profile(cell, args.iters, dev)
+    for cell in (CELLS if args.cell == "all" else (args.cell,)):
+        profile(cell, args.iters or (1 if cell == "config7" else 5), dev)
     return 0
 
 

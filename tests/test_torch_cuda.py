@@ -1,7 +1,7 @@
 """Tests that need the card: the CUDA circuit kernels — Pauli features (K1,
-float32 and float64), states (K2, float32 and float64) and fused-program
-states (K4) — against their plain PyTorch versions, on CUDA tensors. They
-skip where there is no card.
+float32 and float64), states (K2, float32 and float64), fused-program Pauli
+features (K3) and fused-program states (K4) — against their plain PyTorch
+versions, on CUDA tensors. They skip where there is no card.
 
 On a GPU host, where JAX need not be installed (the port does not use it),
 bypass conftest.py, which imports JAX:
@@ -87,12 +87,45 @@ def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
     TQ.features_from_angles(spec, a.double())
     monkeypatch.setattr(config, "use_fusion", "on")
     TQ.features_from_angles(spec, a)
-    assert K1.launch_counts() == {"K1": 0, "K1_f64": 0, "K2": 1, "K2_f64": 1, "K4": 1}
+    assert K1.launch_counts() == {"K1": 0, "K1_f64": 0, "K2": 1, "K2_f64": 1, "K3": 0,
+                                  "K4": 1}
 
 
-def test_card_fused_projected_features_raise_naming_k3(cuda, monkeypatch):
-    monkeypatch.setattr(config, "use_fusion", "on")
-    c = build_circuit("yz_cx", 2, 2, 1)
+@pytest.mark.parametrize("enc", ENCODING_TYPES)
+def test_fused_features_kernel_matches_plain_on_card(cuda, enc):
+    """K3 at 8e-6 (tests/test_fusion.py) against the plain fused engine and
+    K1's plain unfused version; its launch alone on rows packed ahead gives
+    the same features."""
+    from dqgp_tpu_torch.ops.fusion import fuse_circuit, packed_inputs
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for n in (1, 3, 6, 10):
+        c = build_circuit(enc, n, 2, 2)
+        for B in (1, 257):
+            a = _angles(gen, c, B, torch.float32)
+            before = K1.launch_counts()["K3"]
+            got = K1.pauli_features_from_angles_fused(c, a)
+            again = K1.pauli_features_from_packed(c, packed_inputs(fuse_circuit(c), a))
+            torch.cuda.synchronize()
+            assert K1.launch_counts()["K3"] == before + 2
+            assert got.shape == (B, 3 * n) and got.dtype == torch.float32
+            assert torch.equal(got, again)
+            assert float((got - K1.pauli_features_fused_reference(c, a)).abs().max()) <= 8e-6
+            assert float((got - K1.pauli_features_reference(c, a)).abs().max()) <= 8e-6
+
+
+def test_card_fused_projected_features_go_through_k3(cuda, monkeypatch):
+    """Per-qubit projected features take K3 where fusion is on (at 10 qubits
+    under "auto"), K1 where it is off, and K1's float64 instantiation for
+    float64 angles whatever the switch says."""
+    c = build_circuit("chebyshev", 10, 2, 2)
+    spec = QuantumKernelSpec(circuit=c, kernel_type="projected")
     a = torch.zeros((4, c.num_gates), device=cuda)
-    with pytest.raises(NotImplementedError, match="K3"):
-        TQ.features_from_angles(QuantumKernelSpec(circuit=c, kernel_type="projected"), a)
+    K1.reset_launch_counts()
+    monkeypatch.setattr(config, "use_fusion", "auto")
+    TQ.features_from_angles(spec, a)
+    TQ.features_from_angles(spec, a.double())
+    monkeypatch.setattr(config, "use_fusion", "off")
+    TQ.features_from_angles(spec, a)
+    assert K1.launch_counts() == {"K1": 1, "K1_f64": 1, "K2": 0, "K2_f64": 0, "K3": 1,
+                                  "K4": 0}

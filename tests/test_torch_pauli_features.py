@@ -69,7 +69,6 @@ def fake_cuda(monkeypatch):
     tensors, so their guards are checked without a card. Building or
     loading the kernel would fail here, so any guard that lets a request
     through shows up as a build error instead of the expected exception."""
-    monkeypatch.setattr(TQ, "_is_cuda", lambda t: True)
     monkeypatch.setattr(K1, "_is_cuda", lambda t: True)
 
     def no_build(*a, **k):
@@ -96,9 +95,9 @@ def test_cuda_float64_request_raises(fake_cuda):
 
 
 def test_cuda_fidelity_and_pauli_strings_raise(fake_cuda, monkeypatch):
-    """Fidelity states and full Pauli strings go to K2 (K4 with fusion on):
-    they reach the kernel build. Fused projected features need K3, which is
-    not ported, and raise naming it."""
+    """Fidelity states and full Pauli strings go to K2 (K4 with fusion on),
+    per-qubit projected features to K1 (K3 with fusion on): each reaches its
+    kernel's build."""
     from dqgp_tpu_torch import config
 
     c = build_circuit("yz_cx", 2, 2, 1)
@@ -111,9 +110,12 @@ def test_cuda_fidelity_and_pauli_strings_raise(fake_cuda, monkeypatch):
             with pytest.raises(AssertionError, match="reach the kernel build") as e:
                 TQ.features_from_angles(spec_from_jax(spec), a)
             assert e.traceback[-1].locals["a"] == (source,)
-    with pytest.raises(NotImplementedError, match="K3"):
-        TQ.features_from_angles(
-            spec_from_jax(JaxSpec(circuit=c, kernel_type="projected")), a)
+    for mode, source in (("off", K1.SOURCE), ("on", K1.FEATURES_FUSED_SOURCE)):
+        monkeypatch.setattr(config, "use_fusion", mode)
+        with pytest.raises(AssertionError, match="reach the kernel build") as e:
+            TQ.features_from_angles(
+                spec_from_jax(JaxSpec(circuit=c, kernel_type="projected")), a)
+        assert e.traceback[-1].locals["a"] == (source,)
 
 
 def test_cuda_wrapper_validates_inputs(fake_cuda):
