@@ -9,8 +9,10 @@ Phases, one line each; any failure raises and exits non-zero:
 2. build   — nvcc builds the Pauli-feature (K1), states (K2), fused
              Pauli-feature (K3) and fused states (K4) kernels for sm_90a,
              one nvcc each, all started together, with ptxas's register and
-             spill report and K3's threads per block and shared memory at
-             config #7's circuit;
+             spill report; for each of K3's ten instantiations (1-10 qubits)
+             its registers, stack frame and spills, which must be 0 and 0,
+             and K3's geometry and resident blocks an SM at config #7's
+             circuit;
 3. K1      — the kernel against its plain PyTorch version on the same CUDA
              tensors: 8 circuit families x {2,3,4,5,8,10} qubits x batch
              {1, 130, 84240}, plus the main path's own shapes (chebyshev
@@ -54,7 +56,8 @@ Phases, one line each; any failure raises and exits non-zero:
 10. K3     — the fused Pauli-feature kernel against its plain version (the
              plain fused engine) and against K1's plain unfused version on
              the same CUDA tensors, max abs diff <= 8e-6: 8 families x
-             {2,3,4,6,8,10} qubits x batch {1, 130, 108032}, plus config #7's
+             every qubit count 1..10 (each instantiation, both sides of the
+             register/lane split) x batch {1, 130, 108032}, plus config #7's
              own shapes (chebyshev 10 qubits / 2 layers, G=70, at 108032
              step rows, 54016 zero-shift rows, 512 CV rows, 49999
              predict-train rows, 512 predict-test rows);
@@ -79,20 +82,29 @@ Phases, one line each; any failure raises and exits non-zero:
              of the central one on 2 agents, and the CG posterior within
              mean rtol 1e-3 / variance rtol 1e-2 (atol 1e-5) of the dense
              float64 one on the first 4096 training rows;
-12. times  — one full-size ADMM iteration (step and CV), K3 vs K1 vs the
-             plain fused version at B=108032, n=10, G=70 and K3's launch
-             alone, the CG predictor's set-up (timed in 11b: features,
-             pivoted Cholesky, the alpha solve) and 512-row predict, and
-             the float64 gram_matvec at N=49999 with 1 and 512 right-hand
-             sides.
+12. times  — one full-size ADMM iteration (step and CV), K3 (angles ->
+             features) vs K1 vs the plain fused version at B=108032, n=10,
+             G=70, in turns, with K3's bound; K3 vs K1 at 4, 6 and 8 qubits
+             at the same row count (fusion's crossover on the card); the CG
+             predictor's set-up (timed in 11b: features, pivoted Cholesky,
+             the alpha solve) and 512-row predict, and the float64
+             gram_matvec at N=49999 with 1 and 512 right-hand sides.
 
-The last two lines are a JSON record of the kernels and
-``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
+The last two lines are a JSON record of the kernels (each with its bound:
+the larger of its bytes over the card's memory rate and its operations over
+its FP32 rate) and ``{"ok": true, "device": {...}}``. The script imports
+nothing of JAX.
+
+    python3 chip_smoke.py --k3
+
+runs phases 1, 2, 10 and K3's times only (no result lines): the quick check
+of the fused Pauli-feature kernel.
 """
 
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -148,6 +160,14 @@ C7_NLL_ITER1 = 90126.2668   # results_round5/cli_config7_50k.log:71, the JAX pac
 C7_CV_ITER1 = 104.8780      # iteration 1 from the same seeded initial state
 C7_DENSE_ROWS, C7_TEST_ROWS = 4096, 512
 K3_TOL = 8e-6     # fused float32 features, as tests/test_fusion.py:63
+K3_QUBITS = tuple(range(1, 11))  # every instantiation of K3's template
+CROSSOVER_QUBITS = (4, 6, 8)     # K3 vs K1 below config #7's 10 qubits
+
+# The card's published peaks (NVIDIA's data sheet, H100 SXM, at 700 W), for
+# each kernel's bound: the larger of its bytes over the memory rate and its
+# operations over the rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 CONFIG7_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_config7.json")
 
 
@@ -203,7 +223,8 @@ def _alternate_ms(fns, reps: int):
 
 def build_kernels(sources):
     """Build every source with its own nvcc, all started together; returns
-    one report line per source (time and ptxas's register/spill lines)."""
+    {source: (report line: time and ptxas's register/spill lines, ptxas
+    log)}."""
     from dqgp_tpu_torch.ops import _build
 
     def one(src):
@@ -212,10 +233,30 @@ def build_kernels(sources):
         info = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
         return (f"{src} -> {os.path.basename(lib_path)} in {time.time() - t0:.2f} s "
-                f"[{'; '.join(info) if info else 'reused'}]")
+                f"[{'; '.join(info) if info else 'reused'}]"), log
 
     with ThreadPoolExecutor(len(sources)) as pool:
-        return list(pool.map(one, sources))
+        return dict(zip(sources, pool.map(one, sources)))
+
+
+def k3_ptxas(log: str) -> dict:
+    """{qubits: (registers, stack bytes, spill store bytes, spill load bytes)}
+    of every K3 instantiation in ptxas -v's report."""
+    found, n, frame = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*warp_features_kernelILi(\d+)E", ln)
+        if m:
+            n = int(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and n is not None:
+            found[n] = (int(m.group(1)),) + frame
+            n = None
+    return dict(sorted(found.items()))
 
 
 def fidelity_problem(dev):
@@ -381,39 +422,21 @@ def _allclose(got, want, rtol: float, atol: float) -> float:
     return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
 
 
-def config7_phases(dev, smi: str, rand_angles) -> dict:
-    """Phases 10-12: K3 against its plain version, the config #7 path
-    (fixture problem, then full size) and its times. Returns K3's entry of
-    the kernels record."""
+def check_k3(rand_angles):
+    """Phase 10: K3 against its plain version (the plain fused engine) and
+    K1's plain unfused version on the same CUDA tensors, for 8 families x
+    every qubit count K3 is built for x batch {1, 130, 108032}, plus config
+    #7's own shapes. Returns the worst max abs diff against each."""
     import torch
 
-    from dqgp_tpu_torch import manifold as M
-    from dqgp_tpu_torch.data import generate_data_numpy
-    from dqgp_tpu_torch.driver import init_admm_state, train
     from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
-    from dqgp_tpu_torch.models.gp.cv import cv_fold_scores_impl, kfold_pad_indices
-    from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
-    from dqgp_tpu_torch.models.gp.posterior import masked_nll_and_grad, predict_quantum_gp
-    from dqgp_tpu_torch.models.kernels.quantum_kernel import (
-        gram_and_shift_grads, kernel_features)
     from dqgp_tpu_torch.ops import cuda_circuit as K
-    from dqgp_tpu_torch.ops.fusion import fuse_circuit, packed_inputs
-    from dqgp_tpu_torch.parallel import blocked as BL
-    from dqgp_tpu_torch.parallel.consensus import (
-        make_admm_step, make_agent_batch, streamed_nll_and_grad)
 
-    spec = config7_spec()
-    circuit = spec.circuit
-    P = spec.num_parameters
-    program = fuse_circuit(circuit)
-    check((circuit.num_gates, P, len(program.ops), program.n_rows) == (70, 70, 32, 260),
-          "config #7's circuit is not G=70, P=70, 32 fused ops, R=260")
-
-    # 10. K3 vs its plain versions on the card -------------------------------
     t0 = time.time()
+    circuit = config7_spec().circuit
     n_train_full = C7_SAMPLES - int(np.ceil(C7_TEST_SPLIT * C7_SAMPLES))
     cases = [(build_circuit(enc, n, 2, 2), B) for enc in ENCODING_TYPES
-             for n in STATES_QUBITS for B in (1, 130, C7_STEP_ROWS)]
+             for n in K3_QUBITS for B in (1, 130, C7_STEP_ROWS)]
     cases += [(circuit, B) for B in (C7_STEP_ROWS, C7_ZERO_ROWS, C7_CV_MAX,
                                      n_train_full, C7_TEST_ROWS)]
     worst = worst_unfused = 0.0
@@ -433,6 +456,153 @@ def config7_phases(dev, smi: str, rand_angles) -> dict:
     print(f"phase 10 K3 vs plain ({time.time() - t0:.2f} s): {len(cases)} cases, max abs "
           f"diff {worst:.3e} vs the plain fused engine, {worst_unfused:.3e} vs K1's plain "
           f"unfused version (tol {K3_TOL})", flush=True)
+    return worst, worst_unfused
+
+
+def time_k3(rand_angles, smi: str) -> dict:
+    """K3 (angles -> features) vs K1 vs the plain fused version at config #7's
+    step shape, in turns within one call, and K3 vs K1 at 4, 6 and 8 qubits
+    (chebyshev, 2 layers) at the same row count: fusion's crossover on the
+    card. Returns the times (ms) and K3's bound."""
+    from dqgp_tpu_torch.models.circuits import build_circuit
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    t0 = time.time()
+    circuit = config7_spec().circuit
+    a = rand_angles(circuit, C7_STEP_ROWS)
+    k3_ms, k1_ms, plain_ms = _alternate_ms(
+        [lambda: K.pauli_features_from_angles_fused(circuit, a),
+         lambda: K.pauli_features_from_angles(circuit, a),
+         lambda: K.pauli_features_fused_reference(circuit, a)], 5)
+    del a
+    crossover = {}
+    for n in CROSSOVER_QUBITS:
+        c = build_circuit("chebyshev", n, 2, C7_LAYERS)
+        a = rand_angles(c, C7_STEP_ROWS)
+        crossover[n] = _alternate_ms([lambda: K.pauli_features_from_angles_fused(c, a),
+                                      lambda: K.pauli_features_from_angles(c, a)], 10)
+        del a
+    bound_ms, bound_by = k3_bound(circuit, C7_STEP_ROWS)
+    print(f"phase 12 K3 times ({time.time() - t0:.2f} s) [{smi}]: at B={C7_STEP_ROWS} "
+          f"n={C7_QUBITS} G={circuit.num_gates}: K3 {k3_ms:.3f} ms vs K1 {k1_ms:.3f} ms vs "
+          f"plain fused {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), K3 at "
+          f"{bound_ms / k3_ms:.1%} of it, K3/K1 {k3_ms / k1_ms:.3f}; K3 vs K1 at "
+          f"B={C7_STEP_ROWS}, chebyshev 2 layers: "
+          + ", ".join(f"{n} qubits {t3:.4f} vs {t1:.4f} ms ({t3 / t1:.2f})"
+                      for n, (t3, t1) in crossover.items()), flush=True)
+    return {"ms": k3_ms, "plain_ms": plain_ms, "k1_ms": k1_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "k3_vs_k1_ms": {str(n): list(t) for n, t in crossover.items()}}
+
+
+# Operations of one sample, counted from the arithmetic the kernels run: a
+# multiply or an add is one, a fused multiply-add two, a sine or a cosine
+# one; swaps and sign flips none.
+
+def gate_ops(circuit) -> int:
+    """The unfused gate sequence (statevector.cuh: K1 and K2)."""
+    from dqgp_tpu_torch.ops.circuit import CRX, CRY, CRZ, CX, CZ, H, RZZ
+
+    dim, ops = circuit.dim, 0
+    for g in circuit.gates:
+        if g.kind == RZZ:            # half angle, sin, cos; a phase on each amplitude
+            ops += 3 + 6 * dim
+        elif g.kind == H:            # (r0 +- r1) * sqrt(1/2) for each of 4 outputs
+            ops += 8 * (dim // 2)
+        elif g.kind not in (CX, CZ):  # rotations: 4 outputs of 2 products and a sum
+            ops += 3 + 12 * (dim // 4 if g.kind in (CRX, CRY, CRZ) else dim // 2)
+    return ops
+
+
+def fused_program_ops(circuit) -> int:
+    """The fused program (fusion.py: K3 and K4): each SU2 op's 2x2 built from
+    its gates (half angle, sin, cos and a complex 2x2 product per gate), then
+    applied to its amplitude pairs (28 operations a pair, 12 where the 2x2 is
+    real or diagonal); each diagonal run's K-term phase, sin, cos and complex
+    multiply per amplitude."""
+    from dqgp_tpu_torch.ops.fusion import DiagOp, SU2Op, fuse_circuit
+
+    dim, ops = circuit.dim, 0
+    for op in fuse_circuit(circuit).ops:
+        if isinstance(op, SU2Op):
+            pairs = dim // 4 if op.control >= 0 else dim // 2
+            ops += 59 * len(op.gate_idxs) + pairs * (12 if op.real or op.diag else 28)
+        elif isinstance(op, DiagOp):
+            ops += dim * (2 * op.K + 7)
+    return ops
+
+
+def feature_ops(n: int) -> int:
+    """<X_q>, <Y_q>, <Z_q> of every qubit: 16 operations an amplitude pair."""
+    return n * (16 * (1 << (n - 1)) + 2)
+
+
+def bound_ms(nbytes: float, ops: float):
+    """(the least time the card could take, in ms; "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(circuit, B: int):
+    """K1: angles (B, G) in, features (B, 3n) out, float32."""
+    n = circuit.num_qubits
+    return bound_ms(4 * B * (circuit.num_gates + 3 * n),
+                    B * (gate_ops(circuit) + feature_ops(n)))
+
+
+def k2_bound(circuit, B: int):
+    """K2: angles (B, G) float32 in, states (B, 2^n) complex64 out."""
+    return bound_ms(4 * B * circuit.num_gates + 8 * B * circuit.dim, B * gate_ops(circuit))
+
+
+def k3_bound(circuit, B: int):
+    """K3: angles (B, G) and C in, features (B, 3n) out, float32."""
+    from dqgp_tpu_torch.ops.fusion import diag_patterns_concat, fuse_circuit
+
+    n = circuit.num_qubits
+    c_bytes = diag_patterns_concat(fuse_circuit(circuit)).nbytes
+    return bound_ms(4 * B * (circuit.num_gates + 3 * n) + c_bytes,
+                    B * (fused_program_ops(circuit) + feature_ops(n)))
+
+
+def k4_bound(circuit, B: int):
+    """K4: angles (B, G) float32 and C in, states (B, 2^n) complex64 out."""
+    from dqgp_tpu_torch.ops.fusion import diag_patterns_concat, fuse_circuit
+
+    c_bytes = diag_patterns_concat(fuse_circuit(circuit)).nbytes
+    return bound_ms(4 * B * circuit.num_gates + 8 * B * circuit.dim + c_bytes,
+                    B * fused_program_ops(circuit))
+
+
+def config7_phases(dev, smi: str, rand_angles) -> dict:
+    """Phases 10-12: K3 against its plain version, the config #7 path
+    (fixture problem, then full size) and its times. Returns K3's entry of
+    the kernels record."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.data import generate_data_numpy
+    from dqgp_tpu_torch.driver import init_admm_state, train
+    from dqgp_tpu_torch.models.gp.cv import cv_fold_scores_impl, kfold_pad_indices
+    from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
+    from dqgp_tpu_torch.models.gp.posterior import masked_nll_and_grad, predict_quantum_gp
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import (
+        gram_and_shift_grads, kernel_features)
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.ops.fusion import fuse_circuit
+    from dqgp_tpu_torch.parallel import blocked as BL
+    from dqgp_tpu_torch.parallel.consensus import (
+        make_admm_step, make_agent_batch, streamed_nll_and_grad)
+
+    spec = config7_spec()
+    circuit = spec.circuit
+    P = spec.num_parameters
+    program = fuse_circuit(circuit)
+    check((circuit.num_gates, P, len(program.ops), program.n_rows) == (70, 70, 32, 260),
+          "config #7's circuit is not G=70, P=70, 32 fused ops, R=260")
+
+    worst, worst_unfused = check_k3(rand_angles)
+    n_train_full = C7_SAMPLES - int(np.ceil(C7_TEST_SPLIT * C7_SAMPLES))
 
     # 11a. the fixture problem: config #7's width, cut depth ------------------
     with open(CONFIG7_FIXTURE) as f:
@@ -447,7 +617,7 @@ def config7_phases(dev, smi: str, rand_angles) -> dict:
     K.reset_launch_counts()
     res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
     predict = BL.make_cg_predictor(spec, X_tr, Y_tr, torch.as_tensor(res.z, device=dev),
-                                   cfg.noise_std)
+                                   cfg.noise_std, device=dev)
     mean, var = predict(X_te)
     metrics = evaluate_predictions(Y_te, mean, var)
     torch.cuda.synchronize()
@@ -495,7 +665,7 @@ def config7_phases(dev, smi: str, rand_angles) -> dict:
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
     predict = BL.make_cg_predictor(spec, X_tr, Y_tr, torch.as_tensor(res.z, device=dev),
-                                   cfg.noise_std)
+                                   cfg.noise_std, device=dev)
     ev[1].record()
     mean, var = predict(X_te[:C7_TEST_ROWS])
     ev[2].record()
@@ -559,7 +729,7 @@ def config7_phases(dev, smi: str, rand_angles) -> dict:
     # the CG posterior against the dense float64 one on the first 4,096 rows
     z_t = torch.as_tensor(res.z, device=dev)
     Xd, Yd, Xq = X_tr[:C7_DENSE_ROWS], Y_tr[:C7_DENSE_ROWS], X_te[:C7_TEST_ROWS]
-    m_cg, v_cg = BL.make_cg_predictor(spec, Xd, Yd, z_t, cfg.noise_std)(Xq)
+    m_cg, v_cg = BL.make_cg_predictor(spec, Xd, Yd, z_t, cfg.noise_std, device=dev)(Xq)
     m_d, v_d = predict_quantum_gp(spec, torch.as_tensor(Xd, device=dev),
                                   torch.as_tensor(Yd, device=dev),
                                   torch.as_tensor(Xq, device=dev), z_t,
@@ -585,14 +755,7 @@ def config7_phases(dev, smi: str, rand_angles) -> dict:
     cv_ms = _cuda_time_ms(lambda: cv_fold_scores_impl(spec, Xc, Yc, out.z, *folds,
                                                       noise_std=cfg.noise_std), 5)
 
-    a = rand_angles(circuit, C7_STEP_ROWS)
-    k3_ms, k1_ms, plain_ms = _alternate_ms(
-        [lambda: K.pauli_features_from_angles_fused(circuit, a),
-         lambda: K.pauli_features_from_angles(circuit, a),
-         lambda: K.pauli_features_fused_reference(circuit, a)], 5)
-    packed = packed_inputs(program, a)
-    k3_launch_ms = _cuda_time_ms(lambda: K.pauli_features_from_packed(circuit, packed), 10)
-    del a, packed
+    k3 = time_k3(rand_angles, smi)
 
     # the predictor's parts, in its float64 (its set-up and predict were
     # timed in 11b; the alpha solve is the set-up's rest)
@@ -607,22 +770,26 @@ def config7_phases(dev, smi: str, rand_angles) -> dict:
                                      lambda: BL.gram_matvec(spec, F, v512, ones, 4096)], 2)
     print(f"phase 12 times ({time.time() - t0:.2f} s) [{smi}]: config #7 ADMM iteration "
           f"= step {step_ms:.1f} ms + CV {cv_ms:.2f} ms ({C7_AGENTS} agents, Nmax {C7_NMAX}, "
-          f"CV on {C7_CV_MAX} rows); at B={C7_STEP_ROWS} n={C7_QUBITS} G={circuit.num_gates}: "
-          f"K3 {k3_ms:.3f} ms (its launch alone on rows packed ahead {k3_launch_ms:.3f} ms) "
-          f"vs K1 {k1_ms:.3f} ms vs plain fused {plain_ms:.3f} ms; CG predictor set-up on "
+          f"CV on {C7_CV_MAX} rows); CG predictor set-up on "
           f"{len(X_tr)} rows {setup_ms:.1f} ms = features {feats_ms:.3f} ms + rank-64 pivoted "
           f"Cholesky {chol_ms:.2f} ms + alpha solve ({predict.alpha_result.iterations} "
           f"iterations) the rest; predict {C7_TEST_ROWS} rows {predict_ms:.1f} ms; float64 "
           f"gram_matvec at N={len(X_tr)}: 1 right-hand side {mv_ms:.2f} ms "
           f"({len(X_tr) ** 2 / (mv_ms * 1e-3):.3e} entries/s), {C7_TEST_ROWS} {mv512_ms:.2f} ms",
           flush=True)
-    return {"launches": counts["K3"], "max_abs_err": worst, "ms": k3_ms,
-            "plain_ms": plain_ms, "k1_ms": k1_ms, "launch_only_ms": k3_launch_ms,
-            "max_abs_err_vs_unfused": worst_unfused}
+    return {"launches": counts["K3"], "max_abs_err": worst, **k3, "library_ms": None,
+            "max_abs_err_vs_unfused": worst_unfused, "step_ms": step_ms}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--k3", action="store_true",
+                    help="phases 1, 2, 10 and K3's times only, without the result lines")
+    k3_only = ap.parse_args(argv).k3
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -654,25 +821,45 @@ def main() -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.time()
-    reports = build_kernels(K.SOURCES)
+    builds = build_kernels(K.SOURCES)
     for src in K.SOURCES:
         K._library(src)
-    k3_tpb, k3_smem = K.fused_features_launch_config(C7_QUBITS)
-    print(f"phase 2 build ({time.time() - t0:.2f} s): " + " | ".join(reports)
-          + f" | K3 at config #7's circuit ({C7_QUBITS} qubits): {k3_tpb} threads per "
-          f"block, {k3_smem} B dynamic shared memory", flush=True)
+    k3_log = builds[K.FEATURES_FUSED_SOURCE][1]
+    k3_regs = k3_ptxas(k3_log)
+    check(not k3_log or set(k3_regs) == set(K3_QUBITS),
+          f"ptxas reported K3 instantiations {sorted(k3_regs)}, want {list(K3_QUBITS)}")
+    check(all(info[1:] == (0, 0, 0) for info in k3_regs.values()),
+          f"K3 uses a stack frame or spills: {k3_regs}")
+    geo = K.fused_features_geometry(config7_spec().circuit)
+    per_sm = K.fused_features_blocks_per_sm(geo, C7_QUBITS)
+    print(f"phase 2 build ({time.time() - t0:.2f} s): "
+          + " | ".join(report for src, (report, _) in builds.items()
+                       if src != K.FEATURES_FUSED_SOURCE)
+          + f" | {builds[K.FEATURES_FUSED_SOURCE][0].split(' [')[0]}; K3 ptxas by qubit count "
+          + "(registers, stack B, spill stores B, spill loads B): "
+          + (", ".join(f"{n}: {info}" for n, info in k3_regs.items()) or "reused")
+          + f" | K3 at config #7's circuit ({C7_QUBITS} qubits): {geo.threads} threads per "
+          f"block, {geo.lanes} lanes a sample, {geo.samples} samples a block, "
+          f"{geo.smem_bytes} B dynamic shared memory (C {geo.c_bytes} B), {per_sm} blocks "
+          f"an SM ({per_sm * geo.threads // 32} warps)", flush=True)
+    check(per_sm >= 1, "K3 does not fit an SM")
 
-    # 3. K1 vs plain on the card ----------------------------------------------
-    main_circuit = build_circuit("chebyshev", NUM_QUBITS, NUM_FEATURES, NUM_LAYERS)
-    k1_cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B)
-                for enc in ENCODING_TYPES for n in K1_QUBITS for B in K1_BATCHES]
-    k1_cases += [(main_circuit, B) for B in (STEP_ROWS, N_SAMPLES, N_TEST)]
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand_angles(circuit, B, dtype=torch.float32):
         return (torch.rand((B, circuit.num_gates), generator=gen, device=dev,
                            dtype=dtype) * 4.0 - 1.0) * np.pi
 
+    if k3_only:
+        check_k3(rand_angles)
+        time_k3(rand_angles, smi)
+        return 0
+
+    # 3. K1 vs plain on the card ----------------------------------------------
+    main_circuit = build_circuit("chebyshev", NUM_QUBITS, NUM_FEATURES, NUM_LAYERS)
+    k1_cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B)
+                for enc in ENCODING_TYPES for n in K1_QUBITS for B in K1_BATCHES]
+    k1_cases += [(main_circuit, B) for B in (STEP_ROWS, N_SAMPLES, N_TEST)]
     worst = 0.0
     for circuit, B in k1_cases:
         n = circuit.num_qubits
@@ -942,12 +1129,15 @@ def main() -> int:
          "source": "dqgp_tpu_torch/csrc/pauli_features.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:392",
          "launches": launches, "max_abs_err": worst, "ms": k1_ms, "plain_ms": plain_ms,
-         "max_abs_err_f64": err["K1_f64"]},
+         **dict(zip(("bound_ms", "bound_by"), k1_bound(main_circuit, STEP_ROWS))),
+         "library_ms": None, "max_abs_err_f64": err["K1_f64"]},
         {"name": "states (K2)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:238",
          "launches": fcounts["K2"], "max_abs_err": err["K2"], "ms": k2_ms,
-         "plain_ms": k2_plain_ms, "launches_f64": fcounts["K2_f64"],
+         "plain_ms": k2_plain_ms,
+         **dict(zip(("bound_ms", "bound_by"), k2_bound(fid_circuit, FID_STEP_ROWS))),
+         "library_ms": None, "launches_f64": fcounts["K2_f64"],
          "max_abs_err_f64": err["K2_f64"], "ms_f64": k2_64_ms,
          "plain_ms_f64": k2_64_plain_ms},
         {"name": "pauli_features_fused (K3)", "route": "cuda",
@@ -957,7 +1147,9 @@ def main() -> int:
          "source": "dqgp_tpu_torch/csrc/states_fused.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:278",
          "launches": ucounts["K4"], "max_abs_err": err["K4"], "ms": k4_ms,
-         "plain_ms": k4_plain_ms},
+         "plain_ms": k4_plain_ms,
+         **dict(zip(("bound_ms", "bound_by"), k4_bound(fid_circuit, FID_STEP_ROWS))),
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

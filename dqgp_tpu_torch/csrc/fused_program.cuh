@@ -1,6 +1,6 @@
-// Fused-program op loop shared by the fused states kernel (K4,
-// states_fused.cu) and the fused Pauli-feature kernel (K3,
-// pauli_features_fused.cu).
+// Fused-program op loop of the fused states kernel (K4, states_fused.cu).
+// (The fused Pauli-feature kernel K3 runs the same ops on a state held in
+// registers: warp_state.cuh.)
 //
 // One thread runs one sample's gate-fused op program (dqgp_tpu_torch/ops/
 // fusion.py) on a state held as [amplitude][stride] planes: amplitude k of
@@ -17,8 +17,7 @@
 //         [row, row + K), then state *= cos(phi) + i sin(phi).
 //
 // The sample's packed row is read through a stride: entry j lies at
-// p[j * pstride] (K4 stages rows in shared memory, pstride 1; K3 reads a
-// transposed (R, B) matrix from device memory, pstride B). The float32
+// p[j * pstride] (K4 stages rows in shared memory, pstride 1). The float32
 // arithmetic is the one K4 ran before the loop moved here.
 
 #pragma once

@@ -5,7 +5,7 @@
 // |0...0> and write the final state out. packed rows (B, R) float32 ->
 // states (B, 2^n) interleaved complex64. float32 only, as the Pallas kernel
 // is. The program's ops (SU2, PERM, DIAG) and the op loop that runs them are
-// in fused_program.cuh, shared with the fused Pauli-feature kernel (K3).
+// in fused_program.cuh.
 //
 // All trig of the SU2 ops ran outside the kernel (fusion.packed_inputs), so
 // the per-sample cost is one pass over the state per op plus one sincosf

@@ -258,11 +258,14 @@ def gp_posterior_large(
     return torch.cat(means), torch.cat(vars_), res
 
 
-def _device_of(*candidates) -> torch.device:
-    for c in candidates:
-        if torch.is_tensor(c):
-            return c.device
-    return torch.device("cpu")
+def _resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device where there is none raises
+    rather than leaving the work to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the CG predictor runs on the card by "
+                           "default; pass device='cpu' to run it on the CPU")
+    return dev
 
 
 def make_cg_predictor(
@@ -277,14 +280,16 @@ def make_cg_predictor(
     cg_maxiter: int = 400,
     precond_rank: int = 64,
     test_chunk: int = 512,
+    device="cuda",
 ) -> Callable:
     """CG-posterior predictor with the expensive per-(X_train, theta) state
     computed ONCE: training features, the pivoted-Cholesky/Woodbury
     preconditioner, and the alpha solve. The returned callable evaluates
     (mean, var) for any X_eval, ``test_chunk`` rows at a time.
 
-    Runs on the device of ``theta`` or ``X_train`` where either is a
-    tensor, else on the CPU. The solves are float64 on every
+    Runs on ``device``, the card unless the caller asks for the CPU; with
+    no CUDA device and no ``device="cpu"`` it raises. Inputs may be numpy
+    arrays or tensors on any device. The solves are float64 on every
     device, the GP side's type (``config.GP_DTYPE``). The JAX package solves
     in float32 off the CPU (dqgp_tpu/parallel/blocked.py:1208-1213, for a
     TPU's HBM and its emulated float64); on BASELINE config #7 a float32 CG
@@ -295,7 +300,7 @@ def make_cg_predictor(
     Non-converged solves warn: the alpha solve at set-up, the variance
     solves once per predict() call. ``predict.alpha_result`` holds the alpha
     solve's CGResult, ``predict.variance_results`` the last call's."""
-    dev = _device_of(theta, X_train)
+    dev = _resolve_device(device)
     _check_no_regularization(spec)
     dtype = config.GP_DTYPE
     if spec.kernel_type == "fidelity":
@@ -356,9 +361,11 @@ def predict_quantum_gp_large(
     X_test,
     theta,
     noise_std: float,
+    device="cuda",
     **kwargs,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in twin of ``predict_quantum_gp`` for training sets whose dense
-    Gram no longer fits (one-shot form of ``make_cg_predictor``)."""
+    Gram no longer fits (one-shot form of ``make_cg_predictor``, on
+    ``device``: the card unless the caller asks for the CPU)."""
     return make_cg_predictor(spec, X_train, Y_train, theta, noise_std,
-                             **kwargs)(X_test)
+                             device=device, **kwargs)(X_test)

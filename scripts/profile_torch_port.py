@@ -13,7 +13,8 @@ state), then runs ``--iters`` more (default 5, 1 for config7) under
 ``torch.profiler`` and prints per iteration: the
 host wall time, the device time summed over kernels, the device's idle
 share (1 - device / wall), the kernel count, and the device time by kernel
-group. Needs a CUDA device; imports nothing of JAX.
+group with its share of the device time. Needs a CUDA device; imports
+nothing of JAX.
 """
 
 import argparse
@@ -33,7 +34,7 @@ import chip_smoke as cs  # noqa: E402
 CELLS = ("northstar", "fidelity", "config7")
 GROUPS = (  # first match wins
     ("hand kernels (K1-K4)",
-     r"pauli_features_kernel|pauli_features_fused_kernel|states_kernel|states_fused_kernel"),
+     r"pauli_features_kernel|warp_features_kernel|states_kernel|states_fused_kernel"),
     ("eigh (condition numbers)", r"syev|sytrd|stedc|ormtr|steqr|sterf|latrd"),
     ("triangular solves", r"trsm|trsv|trtri"),
     ("Cholesky", r"potrf|potrs"),
@@ -112,7 +113,7 @@ def profile(cell, iters, dev):
           f"idle share {1 - device_ms / wall_ms:.3f}, "
           f"{n_kernels / iters:.0f} kernels/iteration")
     for name, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:9.3f} ms  {name}")
+        print(f"  {ms:9.3f} ms  {ms / device_ms:6.1%} of the device time  {name}")
 
 
 def main() -> int:

@@ -131,7 +131,7 @@ def test_cg_predictor_matches_jax_and_dense(kernel_type, outer, n_tr, n_te):
     Xte = rng.uniform(-0.9, 0.9, (n_te, 2))
     theta = rng.uniform(0, np.pi, spec.num_parameters)
     kw = dict(cg_tol=1e-8, cg_maxiter=600)
-    predict = TB.make_cg_predictor(spec, Xtr, Ytr, theta, 0.1, **kw)
+    predict = TB.make_cg_predictor(spec, Xtr, Ytr, theta, 0.1, device="cpu", **kw)
     m_c, v_c = predict(Xte)
     jpredict = JB.make_cg_predictor(jspec, Xtr, Ytr, theta, 0.1, **kw)
     jm, jv = jpredict(Xte)
@@ -144,7 +144,8 @@ def test_cg_predictor_matches_jax_and_dense(kernel_type, outer, n_tr, n_te):
                                   torch.tensor(Xte), torch.tensor(theta), noise_std=0.1)
     np.testing.assert_allclose(m_c.numpy(), m_d.numpy(), **MEAN)
     np.testing.assert_allclose(v_c.numpy(), v_d.numpy(), **VAR)
-    m_1, v_1 = TB.predict_quantum_gp_large(spec, Xtr, Ytr, Xte, theta, 0.1, **kw)
+    m_1, v_1 = TB.predict_quantum_gp_large(spec, Xtr, Ytr, Xte, theta, 0.1, device="cpu",
+                                          **kw)
     np.testing.assert_array_equal(m_1.numpy(), m_c.numpy())
 
 
@@ -154,7 +155,8 @@ def test_cg_predictor_warns_when_not_converged():
     X, Y = rng.uniform(-0.9, 0.9, (40, 2)), rng.randn(40)
     theta = rng.uniform(0, np.pi, spec.num_parameters)
     with pytest.warns(RuntimeWarning, match="alpha solve did not converge"):
-        predict = TB.make_cg_predictor(spec, X, Y, theta, 0.1, cg_maxiter=1, precond_rank=0)
+        predict = TB.make_cg_predictor(spec, X, Y, theta, 0.1, cg_maxiter=1, precond_rank=0,
+                                       device="cpu")
     with pytest.warns(RuntimeWarning, match="variance solve did not converge"):
         predict(X[:5])
 
@@ -165,4 +167,27 @@ def test_regularized_spec_raises_naming_the_lowrank_clip():
     X = np.zeros((8, 2))
     with pytest.raises(NotImplementedError, match="low-rank eigenvalue clip"):
         TB.make_cg_predictor(spec_from_jax(jspec), X, np.zeros(8),
-                             np.zeros(jspec.num_parameters), 0.1)
+                             np.zeros(jspec.num_parameters), 0.1, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["make_cg_predictor", "predict_quantum_gp_large"])
+def test_cg_predictor_runs_on_the_card_unless_asked_for_the_cpu(entry):
+    """Leaving out ``device`` asks for the card: where there is no CUDA
+    device both entry points raise instead of computing on the CPU; where
+    there is one, the posterior lies on it."""
+    _, spec, _, _ = _setup()
+    rng = np.random.RandomState(5)
+    X, Y = rng.uniform(-0.9, 0.9, (20, 2)), rng.randn(20)
+    theta = rng.uniform(0, np.pi, spec.num_parameters)
+
+    def run():
+        if entry == "make_cg_predictor":
+            return TB.make_cg_predictor(spec, X, Y, theta, 0.1)(X[:3])
+        return TB.predict_quantum_gp_large(spec, X, Y, X[:3], theta, 0.1)
+
+    if torch.cuda.is_available():
+        mean, var = run()
+        assert mean.device.type == var.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run()

@@ -94,22 +94,18 @@ def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
 @pytest.mark.parametrize("enc", ENCODING_TYPES)
 def test_fused_features_kernel_matches_plain_on_card(cuda, enc):
     """K3 at 8e-6 (tests/test_fusion.py) against the plain fused engine and
-    K1's plain unfused version; its launch alone on rows packed ahead gives
-    the same features."""
-    from dqgp_tpu_torch.ops.fusion import fuse_circuit, packed_inputs
-
+    K1's plain unfused version, for every qubit count it is built for (both
+    sides of the register/lane split), one launch a call."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    for n in (1, 3, 6, 10):
+    for n in range(1, K1.MAX_QUBITS + 1):
         c = build_circuit(enc, n, 2, 2)
         for B in (1, 257):
             a = _angles(gen, c, B, torch.float32)
             before = K1.launch_counts()["K3"]
             got = K1.pauli_features_from_angles_fused(c, a)
-            again = K1.pauli_features_from_packed(c, packed_inputs(fuse_circuit(c), a))
             torch.cuda.synchronize()
-            assert K1.launch_counts()["K3"] == before + 2
+            assert K1.launch_counts()["K3"] == before + 1
             assert got.shape == (B, 3 * n) and got.dtype == torch.float32
-            assert torch.equal(got, again)
             assert float((got - K1.pauli_features_fused_reference(c, a)).abs().max()) <= 8e-6
             assert float((got - K1.pauli_features_reference(c, a)).abs().max()) <= 8e-6
 

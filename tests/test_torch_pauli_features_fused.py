@@ -2,7 +2,9 @@
 plain version: the plain fused engine, then the per-qubit X, Y, Z reduction)
 against the Pallas fused kernel in interpret mode and against K1's plain
 version, batch padding, the dispatch at 10 qubits with the fusion switch on
-"auto", the launch configuration and the input guards.
+"auto", the launch geometry, the tables from which the kernel builds its
+coefficients (walked in plain torch against the packed rows) and the input
+guards.
 
 Bar (tests/test_fusion.py:63): fused float32 features within 8e-6 of the
 Pallas fused kernel and of the unfused engine. The CUDA kernel itself runs
@@ -19,6 +21,7 @@ import torch
 from dqgp_tpu.models.circuits import ENCODING_TYPES, build_circuit
 from dqgp_tpu.models.kernels import QuantumKernelSpec as JaxSpec
 from dqgp_tpu.models.kernels.quantum_kernel import features_from_angles as jax_features
+from dqgp_tpu.ops import fusion as jf
 from dqgp_tpu.ops import statevector as jsv
 from dqgp_tpu.ops.pallas_circuit import make_pallas_pauli_features_fused_fn
 from dqgp_tpu_torch import config
@@ -103,22 +106,97 @@ def test_dispatch_at_10_qubits_takes_k3(monkeypatch):
 
 @pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
 def test_fused_features_launch_config(n):
-    """K3's block holds only states, 8 * 2^n bytes a sample, within the
-    200 KB budget: 25 threads at 10 qubits (a K4 block takes 8)."""
-    tpb, smem = K.fused_features_launch_config(n)
-    assert 1 <= tpb <= 128 and smem == tpb * 8 * (1 << n) <= 200 * 1024
-    if n == 10:
-        assert tpb == 25
-        assert K.states_launch_config(10, 260, 4, fixed_bytes=4 * 1024 * 20)[0] == 8
+    """K3's geometry: a sample's state in registers over max(1, 2^(n-5))
+    lanes, so a block works on threads / lanes samples and holds no state in
+    shared memory, only its tables, C and each warp's staged rows (angles,
+    phase-run members and, where a sample spans lanes, its SU2
+    coefficients), within the budget that lets two blocks share an SM."""
+    c = circuit_from_jax(build_circuit("chebyshev", n, 2, 2))
+    ops, gates, members, cperm = K.k3_tables(c)
+    geo = K.fused_features_geometry(c)
+    lanes = max(1, 2 ** (n - 5))
+    assert geo.lanes == lanes and geo.samples == geo.threads // lanes
+    assert geo.c_bytes == 4 * (1 << n) * cperm.shape[0] == cperm.nbytes
+    coef = 8 * tf.fuse_circuit(c).n_su2 if lanes > 1 else 0
+    row = (c.num_gates + members.size + coef) | 1  # angles, members, coefficients
+    per_warp = 4 * ((32 // lanes) * row + 1)  # rows, and the warp's group index
+    table = 4 * ((ops.size + gates.size + members.size + 2 + 3) // 4 * 4)
+    assert geo.smem_bytes == table + geo.c_bytes + geo.threads // 32 * per_warp
+    assert geo.threads in (32, 64, 128, 256) and 2 * geo.smem_bytes <= 228 * 1024
+    if n == 10:  # config #7's circuit: C (1024, 20) is 80 KB, a warp a sample
+        assert (geo.threads, geo.c_bytes, geo.samples) == (256, 81920, 8)
 
 
-def test_packed_launch_guards():
+def _walk_k3_tables(tc, a: torch.Tensor) -> torch.Tensor:
+    """The packed rows K3 forms inside itself, by a plain torch walk of the
+    tables it consumes: each SU2 op's 2x2 from its gate list, from the
+    identity with each new gate on the left, into its slot (from its row
+    offset); then each DiagOp's member angles (pi for a CZ)."""
+    ops, gates, members, _ = K.k3_tables(tc)
+    B = a.shape[0]
+    one = torch.ones((B,), dtype=torch.complex64)
+    zero = torch.zeros((B,), dtype=torch.complex64)
+    coef_at = tc.num_gates + members.size
+    su2, diag = {}, []
+    for typ, _, _, first, count, aux in ops.tolist():
+        if typ == 0:
+            u00, u01, u10, u11 = one, zero, zero, one
+            for kind, gi in gates[first:first + count].tolist():
+                half = 0.5 * a[:, gi]
+                g00, g01, g10, g11 = tf._gate_matrix_entries(kind, torch.cos(half),
+                                                             torch.sin(half))
+                u00, u01, u10, u11 = (g00 * u00 + g01 * u10, g00 * u01 + g01 * u11,
+                                      g10 * u00 + g11 * u10, g10 * u01 + g11 * u11)
+            su2[((aux >> 2) - coef_at) // 8] = torch.stack([u00.real, u00.imag, u01.real, u01.imag,
+                                         u10.real, u10.imag, u11.real, u11.imag], dim=1)
+        elif typ == 2:
+            at = first - tc.num_gates  # the member angles' row offsets
+            diag += [a[:, gi] if gi >= 0 else torch.full((B,), np.pi, dtype=a.dtype)
+                     for gi in members[at:at + count].tolist()]
+    assert sorted(su2) == list(range(len(su2)))
+    return torch.cat([su2[k] for k in range(len(su2))]
+                     + ([torch.stack(diag, dim=1)] if diag else []), dim=1)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 6, 10])
+@pytest.mark.parametrize("enc", ENCODING_TYPES)
+def test_k3_tables_rebuild_the_packed_rows(enc, n):
+    """K3 builds its coefficients from its tables: walked in plain torch,
+    they give fusion.packed_inputs bit for bit and the JAX package's packed
+    rows within 1e-6 (tests/test_torch_fusion.py's bar); C is held permuted
+    [column][register][lane] and the op table follows the program."""
+    c = build_circuit(enc, n, 2, 2)
+    tc = circuit_from_jax(c)
+    program = tf.fuse_circuit(tc)
+    a = _angles(c, 9, seed=10 + n)
+    got = _walk_k3_tables(tc, torch.tensor(a))
+    want = tf.packed_inputs(program, torch.tensor(a))
+    assert got.dtype == want.dtype == torch.float32 and got.shape == (9, program.n_rows)
+    assert torch.equal(got, want)
+    jwant = np.asarray(jf.packed_inputs(jf.fuse_circuit(c), jnp.asarray(a)))
+    np.testing.assert_allclose(got.numpy(), jwant, rtol=0, atol=1e-6)
+    ops, gates, members, cperm = K.k3_tables(tc)
+    assert len(ops) == len(program.ops)
+    lanes = max(1, 2 ** (n - 5))
+    cmat = tf.diag_patterns_concat(program)
+    np.testing.assert_array_equal(
+        cperm.transpose(2, 1, 0).reshape(cmat.shape), cmat)
+    if (enc, n) == ("chebyshev", 10):  # config #7's program
+        assert (program.n_su2, program.n_rows, cperm.shape) == (30, 260, (20, 32, 32))
+        assert len(gates) + len(members) == c.num_gates == 70
+    assert cperm.shape[2] == lanes
+
+
+def test_k3_launch_guards():
+    """K3 takes contiguous float32 (B, G) angles: other dtypes, shapes and
+    layouts raise before any launch (as they would on the card)."""
     c = circuit_from_jax(build_circuit("chebyshev", 3, 2, 1))
-    R = tf.fuse_circuit(c).n_rows
-    with pytest.raises(ValueError, match="float32 CUDA tensor"):
-        K.pauli_features_from_packed(c, torch.zeros((4, R)))
-    with pytest.raises(NotImplementedError, match="float32 angles"):
-        with mock.patch.object(K, "_is_cuda", lambda t: True):
+    with mock.patch.object(K, "_is_cuda", lambda t: True):
+        with pytest.raises(NotImplementedError, match="float32 angles"):
             K.pauli_features_from_angles_fused(c, torch.zeros((4, c.num_gates),
                                                               dtype=torch.float64))
+        with pytest.raises(ValueError, match=f"angles must be \\(B, {c.num_gates}\\)"):
+            K.pauli_features_from_angles_fused(c, torch.zeros((4, c.num_gates + 1)))
+        with pytest.raises(ValueError, match="contiguous"):
+            K.pauli_features_from_angles_fused(c, torch.zeros((c.num_gates, 4)).t())
     assert K.pauli_features_from_angles_fused.launches == 0

@@ -135,7 +135,7 @@ def test_config7_slice_matches_jax(reference, monkeypatch):
                            wraps=TQ.pauli_features_from_angles_fused) as k3, \
             mock.patch.object(TQ, "pauli_features_from_angles") as k1:
         res = TD.train(spec, splits, X_tr, Y_tr, TD.TrainConfig(**TRAIN), device="cpu")
-        mean, var = make_cg_predictor(spec, X_tr, Y_tr, res.z, 0.1)(X_te)
+        mean, var = make_cg_predictor(spec, X_tr, Y_tr, res.z, 0.1, device="cpu")(X_te)
     # every feature of the path goes through K3's wrapper: per step the Gram
     # at wrap(z) and one +-h call per parameter, per CV pass one, per
     # predictor the training rows and the eval rows
@@ -180,7 +180,8 @@ def test_fixture_replay_first_iteration_and_cg(fixture_problem):
     res = TD.train(spec, splits, X_tr, Y_tr, cs.config7_train_config(1, verbose=False),
                    device="cpu")
     cs.check_fidelity_run(res, ref, 1, "config #7 fixture", cs.config7_nll_bars(ref))
-    predict = make_cg_predictor(spec, X_tr, Y_tr, np.array(ref["z_final"]), 0.1)
+    predict = make_cg_predictor(spec, X_tr, Y_tr, np.array(ref["z_final"]), 0.1,
+                                device="cpu")
     mean, var = predict(X_te)
     metrics = evaluate_predictions(Y_te, mean, var)
     assert abs(metrics["nlpd"] - ref["test_metrics"]["nlpd"]) <= cs.config7_test_nlpd_bar(ref)
