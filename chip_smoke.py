@@ -9,10 +9,10 @@ Phases, one line each; any failure raises and exits non-zero:
 2. build   — nvcc builds the Pauli-feature (K1), states (K2), fused
              Pauli-feature (K3) and fused states (K4) kernels for sm_90a,
              one nvcc each, all started together, with ptxas's register and
-             spill report; for each of K3's ten instantiations (1-10 qubits)
-             its registers, stack frame and spills, which must be 0 and 0,
-             and K3's geometry and resident blocks an SM at config #7's
-             circuit;
+             spill report; for each of the ten float32 instantiations (1-10
+             qubits) of K2, K3 and K4 its registers, stack frame and spills,
+             which must be 0 and 0; K3's geometry and resident blocks an SM
+             at config #7's circuit, K2's and K4's at config #5's;
 3. K1      — the kernel against its plain PyTorch version on the same CUDA
              tensors: 8 circuit families x {2,3,4,5,8,10} qubits x batch
              {1, 130, 84240}, plus the main path's own shapes (chebyshev
@@ -33,7 +33,8 @@ Phases, one line each; any failure raises and exits non-zero:
 6. states  — K2 (float32 <= 2e-6, float64 <= 1e-12), K1's float64
              instantiation (<= 1e-12) and K4 (<= 3e-6 against the plain fused
              engine and against the plain unfused states) on the same CUDA
-             tensors: 8 families x {2,3,4,6,8,10} qubits x batch
+             tensors: 8 families x every qubit count 1..10 (each
+             instantiation, both sides of the register/lane split) x batch
              {1, 130, 22500}, plus the fidelity path's shapes (kyriienko
              6 qubits / 1 layer, G=23, at 22500 step rows, 900 CV and
              predict-train rows, 100 predict-test rows);
@@ -50,9 +51,12 @@ Phases, one line each; any failure raises and exits non-zero:
 8. fused   — the same training for 2 iterations with fusion on: K4 runs in
              K2's place, under the same bars;
 9. times   — one fidelity ADMM iteration (step + CV), K2 vs plain and K4 vs
-             plain fused at B=22500, G=23, n=6, K2 vs K4 at 6 and 10 qubits,
-             K2 float64 vs plain complex128 at B=1000, and the 900x900
-             fidelity Gram;
+             plain fused (both from angles) at B=22500, G=23, n=6, with each
+             one's bound and share of it; K2 vs K4 at 4, 6, 8 and 10 qubits
+             (kyriienko, 1 layer) at the same row count, in turns, with
+             their bounds and, from the profiler, each kernel's own device
+             time beside K3's on the same program; K2 float64 vs plain
+             complex128 at B=1000, and the 900x900 fidelity Gram;
 10. K3     — the fused Pauli-feature kernel against its plain version (the
              plain fused engine) and against K1's plain unfused version on
              the same CUDA tensors, max abs diff <= 8e-6: 8 families x
@@ -99,6 +103,11 @@ nothing of JAX.
 
 runs phases 1, 2, 10 and K3's times only (no result lines): the quick check
 of the fused Pauli-feature kernel.
+
+    python3 chip_smoke.py --states
+
+runs phases 1, 2, 6 and the two states kernels' times only (no result
+lines): the quick check of K2 and K4.
 """
 
 import hashlib
@@ -134,7 +143,8 @@ FID_SAMPLES, FID_TEST_SPLIT, FID_AGENTS, FID_SEED = 1000, 0.1, 4, 42
 FID_QUBITS, FID_LAYERS = 6, 1
 FID_ITERS, FID_FUSED_ITERS = 5, 2
 FID_STEP_ROWS = 4 * 25 * 225  # K2's batch in one step: agents x (2P+1) x Nmax
-STATES_QUBITS = (2, 3, 4, 6, 8, 10)
+WARP_QUBITS = tuple(range(1, 11))  # every instantiation of K2's, K3's and K4's templates
+STATES_CROSSOVER_QUBITS = (4, 6, 8, 10)  # K2 vs K4, kyriienko 1 layer
 STATES_BATCHES = (1, 130, FID_STEP_ROWS)
 K2_TOL = 2e-6     # float32 states, as tests/test_pallas_circuit.py holds them
 F64_TOL = 1e-12   # float64 states and features, as tests/test_native.py
@@ -160,7 +170,6 @@ C7_NLL_ITER1 = 90126.2668   # results_round5/cli_config7_50k.log:71, the JAX pac
 C7_CV_ITER1 = 104.8780      # iteration 1 from the same seeded initial state
 C7_DENSE_ROWS, C7_TEST_ROWS = 4096, 512
 K3_TOL = 8e-6     # fused float32 features, as tests/test_fusion.py:63
-K3_QUBITS = tuple(range(1, 11))  # every instantiation of K3's template
 CROSSOVER_QUBITS = (4, 6, 8)     # K3 vs K1 below config #7's 10 qubits
 
 # The card's published peaks (NVIDIA's data sheet, H100 SXM, at 700 W), for
@@ -221,6 +230,22 @@ def _alternate_ms(fns, reps: int):
     return [(a + b) / 2 for a, b in zip(first, second)]
 
 
+def _device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn`` (ms): the kernels' own time summed
+    by torch.profiler over ``reps`` calls, without the host's share of a
+    call, which is most of a small launch's CUDA-event time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(k.device_time_total for k in prof.key_averages()) / reps * 1e-3
+
+
 def build_kernels(sources):
     """Build every source with its own nvcc, all started together; returns
     {source: (report line: time and ptxas's register/spill lines, ptxas
@@ -239,12 +264,20 @@ def build_kernels(sources):
         return dict(zip(sources, pool.map(one, sources)))
 
 
-def k3_ptxas(log: str) -> dict:
+# the warp kernels' entry functions, templated on the qubit count
+WARP_KERNELS = {"K2": "warp_states_kernel", "K3": "warp_features_kernel",
+                "K4": "warp_states_fused_kernel"}
+
+
+def warp_ptxas(log: str, entry: str) -> dict:
     """{qubits: (registers, stack bytes, spill store bytes, spill load bytes)}
-    of every K3 instantiation in ptxas -v's report."""
+    of every instantiation of the kernel template ``entry`` in ptxas -v's
+    report."""
     found, n, frame = {}, None, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*warp_features_kernelILi(\d+)E", ln)
+        if "Compiling entry function" in ln:
+            n = None
+        m = re.search(rf"Compiling entry function '\w*?\d+{entry}ILi(\d+)E", ln)
         if m:
             n = int(m.group(1))
             continue
@@ -436,7 +469,7 @@ def check_k3(rand_angles):
     circuit = config7_spec().circuit
     n_train_full = C7_SAMPLES - int(np.ceil(C7_TEST_SPLIT * C7_SAMPLES))
     cases = [(build_circuit(enc, n, 2, 2), B) for enc in ENCODING_TYPES
-             for n in K3_QUBITS for B in (1, 130, C7_STEP_ROWS)]
+             for n in WARP_QUBITS for B in (1, 130, C7_STEP_ROWS)]
     cases += [(circuit, B) for B in (C7_STEP_ROWS, C7_ZERO_ROWS, C7_CV_MAX,
                                      n_train_full, C7_TEST_ROWS)]
     worst = worst_unfused = 0.0
@@ -500,7 +533,8 @@ def time_k3(rand_angles, smi: str) -> dict:
 # one; swaps and sign flips none.
 
 def gate_ops(circuit) -> int:
-    """The unfused gate sequence (statevector.cuh: K1 and K2)."""
+    """The unfused gate sequence (statevector.cuh, and warp_state.cuh's
+    apply_gate: K1 and K2)."""
     from dqgp_tpu_torch.ops.circuit import CRX, CRY, CRZ, CX, CZ, H, RZZ
 
     dim, ops = circuit.dim, 0
@@ -572,6 +606,125 @@ def k4_bound(circuit, B: int):
     c_bytes = diag_patterns_concat(fuse_circuit(circuit)).nbytes
     return bound_ms(4 * B * circuit.num_gates + 8 * B * circuit.dim + c_bytes,
                     B * fused_program_ops(circuit))
+
+
+def check_states(rand_angles) -> dict:
+    """Phase 6: K2 (float32 and float64), K1's float64 instantiation and K4
+    against their plain versions on the same CUDA tensors, for 8 families x
+    every qubit count the kernels are built for x batch {1, 130, 22500},
+    plus config #5's own shapes. K4 is held to the plain fused engine and to
+    the plain unfused states. Returns the worst max abs diff of each."""
+    import torch
+
+    from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    t0 = time.time()
+    fid_circuit = build_circuit("kyriienko", FID_QUBITS, 1, FID_LAYERS)
+    n_train = FID_SAMPLES - int(np.ceil(FID_TEST_SPLIT * FID_SAMPLES))
+    st_cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B)
+                for enc in ENCODING_TYPES for n in WARP_QUBITS for B in STATES_BATCHES]
+    st_cases += [(fid_circuit, B) for B in (FID_STEP_ROWS, n_train, FID_SAMPLES - n_train)]
+    err = dict.fromkeys(("K2", "K2_f64", "K1_f64", "K4", "K4_unfused"), 0.0)
+
+    def hold(key, got, want, tol, what):
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype,
+              f"{key} {what}: {tuple(got.shape)} {got.dtype} vs "
+              f"{tuple(want.shape)} {want.dtype}")
+        e = float((got - want).abs().max())
+        check(np.isfinite(e) and e <= tol, f"{key} vs plain {what}: max abs diff {e} > {tol}")
+        err[key] = max(err[key], e)
+
+    for circuit, B in st_cases:
+        what = f"{circuit.name} {circuit.num_qubits}q B={B}"
+        a32, a64 = rand_angles(circuit, B), rand_angles(circuit, B, torch.float64)
+        plain = K.states_reference(circuit, a32)
+        hold("K2", K.states_from_angles(circuit, a32), plain, K2_TOL, what)
+        fused = K.states_from_angles_fused(circuit, a32)
+        hold("K4", fused, K.states_fused_reference(circuit, a32), K4_TOL, what)
+        hold("K4_unfused", fused, plain, K4_TOL, what)
+        del plain, fused
+        hold("K2_f64", K.states_from_angles(circuit, a64),
+             K.states_reference(circuit, a64), F64_TOL, what)
+        hold("K1_f64", K.pauli_features_from_angles(circuit, a64),
+             K.pauli_features_reference(circuit, a64), F64_TOL, what)
+    print(f"phase 6 states vs plain ({time.time() - t0:.2f} s): {len(st_cases)} cases; max "
+          f"abs diff K2 f32 {err['K2']:.3e} (tol {K2_TOL}), K2 f64 {err['K2_f64']:.3e} (tol "
+          f"{F64_TOL}), K1 f64 {err['K1_f64']:.3e} (tol {F64_TOL}), K4 {err['K4']:.3e} vs "
+          f"plain fused / {err['K4_unfused']:.3e} vs plain unfused (tol {K4_TOL})", flush=True)
+    return err
+
+
+def time_states(rand_angles, smi: str) -> dict:
+    """K2 and K4 (both angles -> states) vs their plain versions at config
+    #5's step shape, in turns within one call; K2 vs K4 at 4, 6, 8 and 10
+    qubits (kyriienko, 1 layer) at the same row count, each with its bound:
+    fusion's crossover for states on the card. A call's time is by CUDA
+    events; at these sizes most of it is the host's, so the kernels' own
+    device time is read from the profiler beside it, and there K3 runs the
+    same program too: the fused body under its own bit map with a reduction
+    where K4 has its store, which is what the states kernels' map and
+    write-out cost. Then K2's float64 instantiation vs plain complex128 at
+    the dataset's 1000 rows. Returns each kernel's times (ms) and bound for
+    the kernels record."""
+    import torch
+
+    from dqgp_tpu_torch.models.circuits import build_circuit
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    t0 = time.time()
+    fid_circuit = build_circuit("kyriienko", FID_QUBITS, 1, FID_LAYERS)
+    a = rand_angles(fid_circuit, FID_STEP_ROWS)
+    k2_ms, k2_plain_ms, k4_ms, k4_plain_ms = _alternate_ms(
+        [lambda: K.states_from_angles(fid_circuit, a),
+         lambda: K.states_reference(fid_circuit, a),
+         lambda: K.states_from_angles_fused(fid_circuit, a),
+         lambda: K.states_fused_reference(fid_circuit, a)], 20)
+    k2_dev_ms = _device_ms(lambda: K.states_from_angles(fid_circuit, a), 20)
+    k4_dev_ms = _device_ms(lambda: K.states_from_angles_fused(fid_circuit, a), 20)
+    del a
+    crossover = {}
+    for n in STATES_CROSSOVER_QUBITS:
+        c = build_circuit("kyriienko", n, 1, FID_LAYERS)
+        a = rand_angles(c, FID_STEP_ROWS)
+        calls = [lambda: K.states_from_angles(c, a),
+                 lambda: K.states_from_angles_fused(c, a),
+                 lambda: K.pauli_features_from_angles_fused(c, a)]
+        t2, t4 = _alternate_ms(calls[:2], 20)
+        crossover[n] = (t2, k2_bound(c, FID_STEP_ROWS)[0], t4, k4_bound(c, FID_STEP_ROWS)[0],
+                        *(_device_ms(f, 20) for f in calls))
+        del a
+    a64 = rand_angles(fid_circuit, FID_SAMPLES, torch.float64)
+    k2_64_ms, k2_64_plain_ms = _alternate_ms(
+        [lambda: K.states_from_angles(fid_circuit, a64),
+         lambda: K.states_reference(fid_circuit, a64)], 20)
+    k2_b, k2_by = k2_bound(fid_circuit, FID_STEP_ROWS)
+    k4_b, k4_by = k4_bound(fid_circuit, FID_STEP_ROWS)
+    print(f"phase 9 states times ({time.time() - t0:.2f} s) [{smi}]: at B={FID_STEP_ROWS} "
+          f"G={fid_circuit.num_gates} n={FID_QUBITS}: K2 {k2_ms:.4f} ms vs plain "
+          f"{k2_plain_ms:.4f} ms ({k2_plain_ms / k2_ms:.1f}x), bound {k2_b:.5f} ms ({k2_by}), "
+          f"K2 at {k2_b / k2_ms:.1%} of it; K4 from angles {k4_ms:.4f} ms vs plain fused "
+          f"{k4_plain_ms:.4f} ms ({k4_plain_ms / k4_ms:.1f}x), bound {k4_b:.5f} ms ({k4_by}), "
+          f"K4 at {k4_b / k4_ms:.1%} of it; the kernels alone on the device (profiler) K2 "
+          f"{k2_dev_ms:.4f} ms, K4 {k4_dev_ms:.4f} ms; K2 vs K4 at B={FID_STEP_ROWS}, "
+          f"kyriienko 1 layer (a call by CUDA events, then the kernel alone on the device, "
+          f"there also K3 on the same program: K3's bit map and a reduction in the store's "
+          f"place): "
+          + ", ".join(f"{n} qubits {t2:.4f} ms ({b2 / t2:.1%} of {b2:.5f}) vs {t4:.4f} ms "
+                      f"({b4 / t4:.1%} of {b4:.5f}), K4/K2 {t4 / t2:.2f}, device {d2:.4f} / "
+                      f"{d4:.4f} / K3 {d3:.4f} ms"
+                      for n, (t2, b2, t4, b4, d2, d4, d3) in crossover.items())
+          + f"; K2 f64 {k2_64_ms:.4f} ms vs plain c128 {k2_64_plain_ms:.4f} ms at "
+          f"B={FID_SAMPLES}", flush=True)
+    cross = {str(n): dict(zip(("k2_ms", "k2_bound_ms", "k4_ms", "k4_bound_ms",
+                               "k2_device_ms", "k4_device_ms", "k3_device_ms"), t))
+             for n, t in crossover.items()}
+    return {"K2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_b, "bound_by": k2_by,
+                   "device_ms": k2_dev_ms, "ms_f64": k2_64_ms, "plain_ms_f64": k2_64_plain_ms,
+                   "k2_vs_k4_by_qubits": cross},
+            "K4": {"ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_b, "bound_by": k4_by,
+                   "device_ms": k4_dev_ms}}
 
 
 def config7_phases(dev, smi: str, rand_angles) -> dict:
@@ -789,7 +942,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--k3", action="store_true",
                     help="phases 1, 2, 10 and K3's times only, without the result lines")
-    k3_only = ap.parse_args(argv).k3
+    ap.add_argument("--states", action="store_true",
+                    help="phases 1, 2, 6 and K2's and K4's times only, without the "
+                         "result lines")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -806,7 +962,7 @@ def main(argv=None) -> int:
     from dqgp_tpu_torch.models.kernels.quantum_kernel import (
         gram_from_features, kernel_features)
     from dqgp_tpu_torch.ops import cuda_circuit as K
-    from dqgp_tpu_torch.ops.fusion import fuse_circuit, packed_inputs
+    from dqgp_tpu_torch.ops.fusion import fuse_circuit
     from dqgp_tpu_torch.parallel.consensus import make_admm_step, make_agent_batch
 
     dev = torch.device("cuda", 0)
@@ -824,25 +980,35 @@ def main(argv=None) -> int:
     builds = build_kernels(K.SOURCES)
     for src in K.SOURCES:
         K._library(src)
-    k3_log = builds[K.FEATURES_FUSED_SOURCE][1]
-    k3_regs = k3_ptxas(k3_log)
-    check(not k3_log or set(k3_regs) == set(K3_QUBITS),
-          f"ptxas reported K3 instantiations {sorted(k3_regs)}, want {list(K3_QUBITS)}")
-    check(all(info[1:] == (0, 0, 0) for info in k3_regs.values()),
-          f"K3 uses a stack frame or spills: {k3_regs}")
-    geo = K.fused_features_geometry(config7_spec().circuit)
-    per_sm = K.fused_features_blocks_per_sm(geo, C7_QUBITS)
+    warp_sources = {"K2": K.STATES_SOURCE, "K3": K.FEATURES_FUSED_SOURCE,
+                    "K4": K.FUSED_SOURCE}
+    regs = {}
+    for name, src in warp_sources.items():
+        log = builds[src][1]
+        regs[name] = warp_ptxas(log, WARP_KERNELS[name])
+        check(not log or set(regs[name]) == set(WARP_QUBITS),
+              f"ptxas reported {name} instantiations {sorted(regs[name])}, want "
+              f"{list(WARP_QUBITS)}")
+        check(all(info[1:] == (0, 0, 0) for info in regs[name].values()),
+              f"{name} uses a stack frame or spills: {regs[name]}")
+    fid_circuit = build_circuit("kyriienko", FID_QUBITS, 1, FID_LAYERS)
+    geos = {"K2": (K.states_geometry(fid_circuit), FID_QUBITS),
+            "K3": (K.fused_geometry(config7_spec().circuit), C7_QUBITS),
+            "K4": (K.fused_geometry(fid_circuit), FID_QUBITS)}
+    per_sm = {name: K.blocks_per_sm(name, geo, n) for name, (geo, n) in geos.items()}
     print(f"phase 2 build ({time.time() - t0:.2f} s): "
-          + " | ".join(report for src, (report, _) in builds.items()
-                       if src != K.FEATURES_FUSED_SOURCE)
-          + f" | {builds[K.FEATURES_FUSED_SOURCE][0].split(' [')[0]}; K3 ptxas by qubit count "
-          + "(registers, stack B, spill stores B, spill loads B): "
-          + (", ".join(f"{n}: {info}" for n, info in k3_regs.items()) or "reused")
-          + f" | K3 at config #7's circuit ({C7_QUBITS} qubits): {geo.threads} threads per "
-          f"block, {geo.lanes} lanes a sample, {geo.samples} samples a block, "
-          f"{geo.smem_bytes} B dynamic shared memory (C {geo.c_bytes} B), {per_sm} blocks "
-          f"an SM ({per_sm * geo.threads // 32} warps)", flush=True)
-    check(per_sm >= 1, "K3 does not fit an SM")
+          + " | ".join(f"{builds[src][0].split(' [')[0]}" if src in warp_sources.values()
+                       else builds[src][0] for src in K.SOURCES)
+          + " | ptxas by qubit count (registers, stack B, spill stores B, spill loads B): "
+          + "; ".join(f"{name}: " + (", ".join(f"{n}: {info}" for n, info in r.items())
+                                     or "reused") for name, r in regs.items())
+          + " | " + "; ".join(
+              f"{name} at config #{7 if name == 'K3' else 5}'s circuit ({n} qubits): "
+              f"{geo.threads} threads per block, {geo.lanes} lanes a sample, {geo.samples} "
+              f"samples a block, {geo.smem_bytes} B dynamic shared memory (C {geo.c_bytes} B), "
+              f"{per_sm[name]} blocks an SM ({per_sm[name] * geo.threads // 32} warps)"
+              for name, (geo, n) in geos.items()), flush=True)
+    check(all(v >= 1 for v in per_sm.values()), f"a warp kernel does not fit an SM: {per_sm}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -850,9 +1016,13 @@ def main(argv=None) -> int:
         return (torch.rand((B, circuit.num_gates), generator=gen, device=dev,
                            dtype=dtype) * 4.0 - 1.0) * np.pi
 
-    if k3_only:
+    if args.k3:
         check_k3(rand_angles)
         time_k3(rand_angles, smi)
+    if args.states:
+        check_states(rand_angles)
+        time_states(rand_angles, smi)
+    if args.k3 or args.states:
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
@@ -961,39 +1131,7 @@ def main(argv=None) -> int:
           f"{gram_ms:.4f} ms ({1e6 / (gram_ms * 1e-3):.3e} entries/s)", flush=True)
 
     # 6. K2, K1 float64 and K4 vs their plain versions on the card ------------
-    fid_circuit = build_circuit("kyriienko", FID_QUBITS, 1, FID_LAYERS)
-    n_train = FID_SAMPLES - int(np.ceil(FID_TEST_SPLIT * FID_SAMPLES))
-    st_cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B)
-                for enc in ENCODING_TYPES for n in STATES_QUBITS for B in STATES_BATCHES]
-    st_cases += [(fid_circuit, B) for B in (FID_STEP_ROWS, n_train, FID_SAMPLES - n_train)]
-    err = dict.fromkeys(("K2", "K2_f64", "K1_f64", "K4", "K4_unfused"), 0.0)
-
-    def hold(key, got, want, tol, what):
-        torch.cuda.synchronize()
-        check(got.shape == want.shape and got.dtype == want.dtype,
-              f"{key} {what}: {tuple(got.shape)} {got.dtype} vs "
-              f"{tuple(want.shape)} {want.dtype}")
-        e = float((got - want).abs().max())
-        check(np.isfinite(e) and e <= tol, f"{key} vs plain {what}: max abs diff {e} > {tol}")
-        err[key] = max(err[key], e)
-
-    for circuit, B in st_cases:
-        what = f"{circuit.name} {circuit.num_qubits}q B={B}"
-        a32, a64 = rand_angles(circuit, B), rand_angles(circuit, B, torch.float64)
-        plain = K.states_reference(circuit, a32)
-        hold("K2", K.states_from_angles(circuit, a32), plain, K2_TOL, what)
-        hold("K4", K.states_from_angles_fused(circuit, a32),
-             K.states_fused_reference(circuit, a32), K4_TOL, what)
-        hold("K4_unfused", K.states_from_angles_fused(circuit, a32), plain, K4_TOL, what)
-        del plain
-        hold("K2_f64", K.states_from_angles(circuit, a64),
-             K.states_reference(circuit, a64), F64_TOL, what)
-        hold("K1_f64", K.pauli_features_from_angles(circuit, a64),
-             K.pauli_features_reference(circuit, a64), F64_TOL, what)
-    print(f"phase 6 states vs plain: {len(st_cases)} cases; max abs diff K2 f32 "
-          f"{err['K2']:.3e} (tol {K2_TOL}), K2 f64 {err['K2_f64']:.3e} (tol {F64_TOL}), "
-          f"K1 f64 {err['K1_f64']:.3e} (tol {F64_TOL}), K4 {err['K4']:.3e} vs plain "
-          f"fused / {err['K4_unfused']:.3e} vs plain unfused (tol {K4_TOL})", flush=True)
+    err = check_states(rand_angles)
 
     # 7. the fidelity path: dataset, split, 5 ADMM iterations, predict -------
     with open(FIDELITY_FIXTURE) as f:
@@ -1082,28 +1220,6 @@ def main(argv=None) -> int:
     fid_iteration()
     fid_iter_ms = _cuda_time_ms(fid_iteration, 5)
 
-    a = rand_angles(fid_circuit, FID_STEP_ROWS)
-    k2_ms, k2_plain_ms, k4_ms, k4_plain_ms = _alternate_ms(
-        [lambda: K.states_from_angles(fid_circuit, a),
-         lambda: K.states_reference(fid_circuit, a),
-         lambda: K.states_from_angles_fused(fid_circuit, a),
-         lambda: K.states_fused_reference(fid_circuit, a)], 20)
-    c10 = build_circuit("kyriienko", 10, 1, FID_LAYERS)
-    a10 = rand_angles(c10, FID_STEP_ROWS)
-    k2_10_ms, k4_10_ms = _alternate_ms(
-        [lambda: K.states_from_angles(c10, a10),
-         lambda: K.states_from_angles_fused(c10, a10)], 10)
-    # K4's time includes its packed input, built outside the kernel in torch;
-    # the kernel alone runs on rows packed ahead
-    p6 = packed_inputs(fuse_circuit(fid_circuit), a)
-    p10 = packed_inputs(fuse_circuit(c10), a10)
-    k4k_ms, k4k_10_ms = _alternate_ms(
-        [lambda: K.states_from_packed(fid_circuit, p6),
-         lambda: K.states_from_packed(c10, p10)], 10)
-    a64 = rand_angles(fid_circuit, FID_SAMPLES, torch.float64)
-    k2_64_ms, k2_64_plain_ms = _alternate_ms(
-        [lambda: K.states_from_angles(fid_circuit, a64),
-         lambda: K.states_reference(fid_circuit, a64)], 20)
     fz32 = torch.as_tensor(fres.z, device=dev)
 
     def fid_gram():
@@ -1112,15 +1228,9 @@ def main(argv=None) -> int:
     fid_gram()
     fgram_ms = _cuda_time_ms(fid_gram, 20)
     print(f"phase 9 times [{smi}]: fidelity ADMM iteration (step + 5-fold CV) "
-          f"{fid_iter_ms:.3f} ms; at B={FID_STEP_ROWS} G=23 n=6: K2 {k2_ms:.4f} ms vs "
-          f"plain {k2_plain_ms:.4f} ms ({k2_plain_ms / k2_ms:.1f}x), K4 {k4_ms:.4f} ms "
-          f"vs plain fused {k4_plain_ms:.4f} ms ({k4_plain_ms / k4_ms:.1f}x), the K4 kernel "
-          f"alone {k4k_ms:.4f} ms; K2 vs K4 at 10 qubits (kyriienko, G={c10.num_gates}): "
-          f"{k2_10_ms:.4f} vs {k4_10_ms:.4f} ms (the K4 kernel alone {k4k_10_ms:.4f} ms); "
-          f"K2 f64 {k2_64_ms:.4f} ms vs plain c128 "
-          f"{k2_64_plain_ms:.4f} ms at B={FID_SAMPLES}; {len(X_tr)}x{len(X_tr)} "
-          f"fidelity Gram {fgram_ms:.4f} ms "
+          f"{fid_iter_ms:.3f} ms; {len(X_tr)}x{len(X_tr)} fidelity Gram {fgram_ms:.4f} ms "
           f"({len(X_tr) ** 2 / (fgram_ms * 1e-3):.3e} entries/s)", flush=True)
+    st = time_states(rand_angles, smi)
 
     k3 = config7_phases(dev, smi, rand_angles)
 
@@ -1134,22 +1244,17 @@ def main(argv=None) -> int:
         {"name": "states (K2)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:238",
-         "launches": fcounts["K2"], "max_abs_err": err["K2"], "ms": k2_ms,
-         "plain_ms": k2_plain_ms,
-         **dict(zip(("bound_ms", "bound_by"), k2_bound(fid_circuit, FID_STEP_ROWS))),
+         "launches": fcounts["K2"], "max_abs_err": err["K2"], **st["K2"],
          "library_ms": None, "launches_f64": fcounts["K2_f64"],
-         "max_abs_err_f64": err["K2_f64"], "ms_f64": k2_64_ms,
-         "plain_ms_f64": k2_64_plain_ms},
+         "max_abs_err_f64": err["K2_f64"]},
         {"name": "pauli_features_fused (K3)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features_fused.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:330", **k3},
         {"name": "states_fused (K4)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states_fused.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:278",
-         "launches": ucounts["K4"], "max_abs_err": err["K4"], "ms": k4_ms,
-         "plain_ms": k4_plain_ms,
-         **dict(zip(("bound_ms", "bound_by"), k4_bound(fid_circuit, FID_STEP_ROWS))),
-         "library_ms": None},
+         "launches": ucounts["K4"], "max_abs_err": err["K4"], **st["K4"],
+         "library_ms": None, "max_abs_err_vs_unfused": err["K4_unfused"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

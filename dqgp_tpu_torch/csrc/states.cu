@@ -8,30 +8,115 @@
 // float64 dataset Gram and float64 features, which the JAX package runs in
 // complex128 on CPU and GPU).
 //
-// What bounds it on this card: the gate loop's trig and shared-memory
-// traffic, and at large n the store of the states. At the fidelity path's
-// 6 qubits a sample reads a 92 B angle row and writes 512 B of complex64
-// state, while its 23 gates each read and write up to 64 amplitudes.
+// What bounds it on this card: the store of the states. At the fidelity
+// path's 6 qubits a sample reads a 92 B angle row and writes 512 B of
+// complex64 state, and its 23 gates cost ~6e3 operations.
 //
-// Design: the gate loop is K1's (statevector.cuh): one thread per sample,
-// the state resident in shared memory as [amplitude][thread] planes for the
-// whole sequence. The planes' stride is padded to an odd number of words,
-// so that the epilogue can read them across threads: after a barrier the
-// block writes its tile out cooperatively, consecutive threads taking
-// consecutive amplitudes of one row, so each warp's stores coalesce into
-// one contiguous 256 B (float) or 512 B (double) segment, and its
-// shared-memory reads (stride apart) fall in distinct banks.
+// Design, float32 (warp_states_kernel): a sample's state lives in registers
+// across a lane group (warp_state.cuh: 32 complex amplitudes a lane, a whole
+// warp a sample at 10 qubits, a lane a sample at n <= 5), and the kernel
+// applies the circuit's gates one at a time, in the circuit's order, through
+// apply_gate: it stays the unfused sequence, the independent check of the
+// fused program (K4). Shared memory holds the gate table and each warp's
+// staged angle rows (loaded coalesced, at an odd stride); no state. The
+// gate table gives qubits as physical bits under the states kernels' map
+// (ops/cuda_circuit.py::states_bit): qubits 0..n-6 on the lane bits, n-5..n-1
+// on the register bits, so that for each register the lanes of a sample
+// hold consecutive amplitudes and store_state writes them as float4s, two
+// full 256 B lines a warp and instruction at 10 qubits. Blocks are
+// persistent: each loads the gate table once, then its warps walk the batch
+// a warp-sized group of samples at a time. Templated on n (1..10); ptxas
+// reports no stack frame and no spills for any of the ten (chip_smoke.py's
+// phase 2 fails otherwise). Trig is warp_state.cuh's sin_cos.
 //
-// Interface: plain C, loaded with ctypes. The launch returns
+// Design, float64 (states_kernel<double>): 2^n complex128 amplitudes over
+// the same lanes would be 128 registers of state a lane at n >= 5, which
+// does not fit, so the float64 instantiation keeps the shared-memory layout
+// of K1's gate loop (statevector.cuh): one thread per sample, the state
+// resident in shared memory as [amplitude][thread] planes at an odd stride,
+// and after a barrier a cooperative store, consecutive threads taking
+// consecutive amplitudes of one row. It runs once a dataset (B = 1000) and
+// for float64 features.
+//
+// Interface: plain C, loaded with ctypes. The launches return
 // cudaGetLastError(), which the Python wrapper checks.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "statevector.cuh"
+#include "warp_state.cuh"
 
 namespace {
 
+using namespace dqgp::warp;
+
+constexpr int kGateFields = 3;  // [kind, qubit, control]
+
+// float32: gates points at the (G, 3) int32 table [kind, bit, control bit],
+// out at (B, 2^N) complex64.
+template <int N>
+__global__ void __launch_bounds__(kMaxThreads, kStatesMinBlocks)
+warp_states_kernel(const float* __restrict__ angles,
+                   const int* __restrict__ gates, float* __restrict__ out,
+                   int B, int G) {
+  using Geo = Geometry<N>;
+  extern __shared__ __align__(16) float smem[];
+  const int gate_words = kGateFields * G;
+  // the gate table, then the batch loop's bound and stride
+  const int table_words = (gate_words + 2 + 3) & ~3;
+  const int rstride = G | 1;
+  int* gates_s = reinterpret_cast<int*>(smem);
+  volatile int* loop_s = gates_s + gate_words;  // [groups, stride]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // Per warp: its samples' staged angle rows, then one word that holds the
+  // group index across the gate loop (so that no register does).
+  float* stage = smem + table_words + warp * (Geo::kSamples * rstride + 1);
+  volatile int* group_word = reinterpret_cast<volatile int*>(stage + Geo::kSamples * rstride);
+
+  for (int i = threadIdx.x; i < gate_words; i += blockDim.x) gates_s[i] = gates[i];
+  if (threadIdx.x == 0) {
+    loop_s[0] = (B + Geo::kSamples - 1) / Geo::kSamples;
+    loop_s[1] = gridDim.x * (blockDim.x >> 5);
+  }
+  __syncthreads();
+
+  const int lig = lane & (Geo::kL - 1);  // lane within the sample's group
+  const int sw = lane / Geo::kL;         // the warp's sample this lane works on
+  const float* row = stage + sw * rstride;
+  for (int g = blockIdx.x * (blockDim.x >> 5) + warp; g < loop_s[0];) {
+    const int s0 = g * Geo::kSamples;
+    __syncwarp();
+    if (lane == 0) *group_word = g;
+    for (int s = 0; s < Geo::kSamples; ++s) {
+      const bool here = s0 + s < B;
+      const float* src = angles + (long long)(s0 + s) * G;
+      float* dst = stage + s * rstride;
+      for (int j = lane; j < G; j += 32) dst[j] = here ? src[j] : 0.f;
+    }
+    __syncwarp();
+
+    float re[Geo::kA], im[Geo::kA];
+#pragma unroll
+    for (int r = 0; r < Geo::kA; ++r) {
+      re[r] = 0.f;
+      im[r] = 0.f;
+    }
+    re[0] = lig == 0 ? 1.f : 0.f;
+
+    for (int j = 0; j < G; ++j) {
+      const int* gate = gates_s + kGateFields * j;
+      apply_gate<N>(re, im, gate[0], gate[1], gate[2], row[j], lig);
+    }
+
+    g = *group_word;
+    const int b = g * Geo::kSamples + sw;
+    store_state<N>(re, im, lig, out + (long long)b * (2 * Geo::kDim), b < B);
+    g += loop_s[1];
+  }
+}
+
+// float64: one thread per sample, the state in shared memory.
 template <typename T>
 __global__ void states_kernel(const T* __restrict__ angles,
                               const int* __restrict__ gates,
@@ -61,40 +146,58 @@ __global__ void states_kernel(const T* __restrict__ angles,
                         sstride, rows, n);
 }
 
-template <typename T>
-int launch(const T* angles, const int* gates, T* out, int B, int G, int n,
-           int tpb, int gstride, int sstride, long long smem_bytes,
-           void* stream) {
+}  // namespace
+
+#define DQGP_FOR_EACH_N(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
+
+extern "C" {
+
+// angles points at a (B, G) float32 tensor, gates at the (G, 3) int32 table
+// [kind, bit, control bit] under the states kernels' bit map, out at a
+// (B, 2^n) complex64 tensor. Returns cudaGetLastError().
+int dqgp_states(const float* angles, const int* gates, float* out, int B,
+                int G, int n, int tpb, long long smem_bytes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n) {
+#define DQGP_CASE(N)                                                        \
+  case N:                                                                   \
+    return launch_persistent(warp_states_kernel<N>, Geometry<N>::kSamples, \
+                             B, tpb, smem_bytes, s, angles, gates, out, B, G);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks an SM holds of the n-qubit float32 instantiation at this
+// block size and shared memory (-1 on error).
+int dqgp_states_blocks_per_sm(int n, int tpb, long long smem_bytes) {
+  switch (n) {
+#define DQGP_CASE(N) \
+  case N:            \
+    return blocks_per_sm(warp_states_kernel<N>, tpb, smem_bytes);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
+  }
+  return -1;
+}
+
+// gates is the (G, 3) int32 table [kind, qubit, control], out points at a
+// (B, 2^n) complex128 tensor. Returns cudaGetLastError().
+int dqgp_states_f64(const double* angles, const int* gates, double* out,
+                    int B, int G, int n, int tpb, int gstride, int sstride,
+                    long long smem_bytes, void* stream) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        states_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        states_kernel<double>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (B + tpb - 1) / tpb;
-  states_kernel<T><<<blocks, tpb, (size_t)smem_bytes, (cudaStream_t)stream>>>(
+  states_kernel<double><<<blocks, tpb, (size_t)smem_bytes, (cudaStream_t)stream>>>(
       angles, gates, out, B, G, n, gstride, sstride);
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// out points at a (B, 2^n) complex64 tensor. Returns cudaGetLastError().
-int dqgp_states(const float* angles, const int* gates, float* out, int B,
-                int G, int n, int tpb, int gstride, int sstride,
-                long long smem_bytes, void* stream) {
-  return launch<float>(angles, gates, out, B, G, n, tpb, gstride, sstride,
-                       smem_bytes, stream);
-}
-
-// out points at a (B, 2^n) complex128 tensor. Returns cudaGetLastError().
-int dqgp_states_f64(const double* angles, const int* gates, double* out,
-                    int B, int G, int n, int tpb, int gstride, int sstride,
-                    long long smem_bytes, void* stream) {
-  return launch<double>(angles, gates, out, B, G, n, tpb, gstride, sstride,
-                        smem_bytes, stream);
 }
 
 const char* dqgp_cuda_error_string(int code) {

@@ -2,27 +2,29 @@
 //
 // Replaces dqgp_tpu/ops/pallas_circuit.py::make_pallas_states_fused_fn: per
 // sample, run the gate-fused op program of dqgp_tpu_torch/ops/fusion.py on
-// |0...0> and write the final state out. packed rows (B, R) float32 ->
-// states (B, 2^n) interleaved complex64. float32 only, as the Pallas kernel
-// is. The program's ops (SU2, PERM, DIAG) and the op loop that runs them are
-// in fused_program.cuh.
+// |0...0> and write the final state out. Angles (B, G) float32 -> states
+// (B, 2^n) interleaved complex64. float32 only, as the Pallas kernel is. Like
+// the TPU function, which builds its packed coefficient rows from the angles
+// inside the same call, the kernel takes the angles and forms each SU2 op's
+// fused 2x2 itself.
 //
-// All trig of the SU2 ops ran outside the kernel (fusion.packed_inputs), so
-// the per-sample cost is one pass over the state per op plus one sincosf
-// per amplitude per DIAG op.
+// What bounds it on this card: the store of the states. A sample writes
+// 8 * 2^n bytes against 4 G read; at the fidelity path's 6 qubits that is
+// 512 B against 92 B, and the 11 fused ops cost ~1.4e3 operations a sample.
 //
-// What bounds it on this card: shared-memory traffic per op and, at large
-// n, the store of the states; device-memory reads are one packed row per
-// sample.
-//
-// Design: K2's (states.cu): one thread per sample, the state resident in
-// shared memory as [amplitude][thread] planes with a padded odd stride, the
-// block's packed rows staged with coalesced loads at an odd row stride, and
-// a cooperative, coalesced store of the block's tile at the end. The op
-// table (6 int32 per op) is read by every thread at the same address. The
-// static phase-pattern matrix C (2^n, KT) float32 is staged into shared
-// memory once per block; every thread reads the same entry at the same
-// time, so the reads broadcast.
+// Design: the fused program's body is warp_program.cuh's, shared with the
+// fused Pauli-feature kernel (K3): a sample's state in registers across a
+// lane group (warp_state.cuh), tables, C and each warp's staged rows in
+// shared memory, persistent blocks. This kernel adds the write-out, and for
+// its sake its tables map the qubits onto the state's bits the other way
+// round from K3's (ops/cuda_circuit.py::fused_tables): qubits 0..n-6 lie on
+// the lane bits, n-5..n-1 on the register bits, so amplitude k is register
+// k >> (n-5) of lane k & (L-1), and for each register the lanes of a sample
+// hold L consecutive amplitudes. store_state writes them as float4s, two
+// full 256 B lines a warp and instruction at 10 qubits, with no staging in
+// shared memory and no state register kept beyond its store. The kernel is
+// templated on n (1..10); ptxas reports no stack frame and no spills for any
+// of the ten (chip_smoke.py's phase 2 fails otherwise).
 //
 // Interface: plain C, loaded with ctypes. The launch returns
 // cudaGetLastError(), which the Python wrapper checks.
@@ -30,64 +32,72 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fused_program.cuh"
-#include "statevector.cuh"
+#include "warp_program.cuh"
 
 namespace {
 
-__global__ void states_fused_kernel(const float* __restrict__ packed,
-                                    const float* __restrict__ cmat,
-                                    const int* __restrict__ ops,
-                                    float* __restrict__ out, int B, int R,
-                                    int n, int n_ops, int KT, int rstride,
-                                    int sstride) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tpb = blockDim.x;
-  const int tid = threadIdx.x;
-  const int dim = 1 << n;
-  float* re = reinterpret_cast<float*>(smem_raw);  // [dim][sstride]
-  float* im = re + (size_t)dim * sstride;          // [dim][sstride]
-  float* rows_s = im + (size_t)dim * sstride;      // [tpb][rstride]
-  float* c_s = rows_s + (size_t)tpb * rstride;     // [dim][KT]
+using namespace dqgp::warp;
 
-  const long long b0 = (long long)blockIdx.x * tpb;
-  const int rows = (int)min((long long)tpb, (long long)B - b0);
-
-  dqgp::stage_rows(rows_s, packed + b0 * R, rows, R, rstride);
-  for (int i = tid; i < dim * KT; i += tpb) c_s[i] = cmat[i];
-  __syncthreads();
-  if (tid < rows) {
-    float* st_re = re + tid;
-    float* st_im = im + tid;
-    const float* p = rows_s + tid * rstride;
-    dqgp::init_zero_state(st_re, st_im, sstride, dim);
-    dqgp::run_fused_program(st_re, st_im, sstride, p, 1, c_s, KT, ops, n_ops, n);
-  }
-  __syncthreads();
-  dqgp::store_states<float>(reinterpret_cast<float2*>(out) + b0 * dim, re, im,
-                            sstride, rows, n);
+template <int N>
+__global__ void __launch_bounds__(kMaxThreads, kStatesMinBlocks)
+warp_states_fused_kernel(const float* __restrict__ angles,
+                         const float* __restrict__ cperm,
+                         const int* __restrict__ ops,
+                         const int* __restrict__ gates,
+                         const int* __restrict__ members,
+                         float* __restrict__ out, int B, int num_gates,
+                         int n_ops, int n_gates, int n_members, int n_su2,
+                         int KT) {
+  const ProgramArgs p{angles, cperm, ops, gates, members, B, num_gates,
+                      n_ops, n_gates, n_members, n_su2, KT};
+  run_fused_batch<N>(p, [out, B](const float (&re)[Geometry<N>::kA],
+                                 const float (&im)[Geometry<N>::kA], int lig, int b) {
+    store_state<N>(re, im, lig, out + (long long)b * (2 * Geometry<N>::kDim), b < B);
+  });
 }
 
 }  // namespace
 
+#define DQGP_FOR_EACH_N(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
+
 extern "C" {
 
-// out points at a (B, 2^n) complex64 tensor. Returns cudaGetLastError().
-int dqgp_states_fused(const float* packed, const float* cmat, const int* ops,
-                      float* out, int B, int R, int n, int n_ops, int KT,
-                      int tpb, int rstride, int sstride, long long smem_bytes,
-                      void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        states_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes);
-    if (e != cudaSuccess) return (int)e;
+// angles points at a (B, num_gates) float32 tensor, cperm at C permuted
+// (KT, 2^n) as [column][register][lane of the group], ops at the (n_ops, 6),
+// gates at the (n_gates, 2) and members at the (n_members,) int32 tables
+// (qubits as the states kernels' physical bits), out at a (B, 2^n) complex64
+// tensor. Returns cudaGetLastError().
+int dqgp_states_fused(const float* angles, const float* cperm, const int* ops,
+                      const int* gates, const int* members, float* out, int B,
+                      int n, int num_gates, int n_ops, int n_gates,
+                      int n_members, int n_su2, int KT, int tpb,
+                      long long smem_bytes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n) {
+#define DQGP_CASE(N)                                                         \
+  case N:                                                                    \
+    return launch_persistent(warp_states_fused_kernel<N>,                    \
+                             Geometry<N>::kSamples, B, tpb, smem_bytes, s,   \
+                             angles, cperm, ops, gates, members, out, B,     \
+                             num_gates, n_ops, n_gates, n_members, n_su2, KT);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
   }
-  const int blocks = (B + tpb - 1) / tpb;
-  states_fused_kernel<<<blocks, tpb, (size_t)smem_bytes,
-                        (cudaStream_t)stream>>>(packed, cmat, ops, out, B, R, n,
-                                                n_ops, KT, rstride, sstride);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks an SM holds of the n-qubit instantiation at this block
+// size and shared memory (-1 on error).
+int dqgp_states_fused_blocks_per_sm(int n, int tpb, long long smem_bytes) {
+  switch (n) {
+#define DQGP_CASE(N) \
+  case N:            \
+    return blocks_per_sm(warp_states_fused_kernel<N>, tpb, smem_bytes);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
+  }
+  return -1;
 }
 
 const char* dqgp_cuda_error_string(int code) {

@@ -37,6 +37,7 @@ Exact gate-for-gate squlearn parity is flagged as a fixture-verification task
 
 from __future__ import annotations
 
+import functools
 from typing import List
 
 import numpy as np
@@ -65,6 +66,7 @@ def _chain(n: int) -> List[tuple]:
     return [(i, i + 1) for i in range(n - 1)]
 
 
+@functools.lru_cache(maxsize=256)
 def build_circuit(
     encoding_type: str,
     num_qubits: int,
@@ -75,6 +77,10 @@ def build_circuit(
     """Build one of the 8 encoding circuits as a static ``Circuit`` IR.
 
     Mirrors ``create_quantum_kernel``'s circuit dispatch (main.py:67-106).
+    The same arguments give the same (immutable) object: the kernel wrappers
+    key their cached tables by the circuit, and telling two equal circuits
+    apart gate by gate costs more host time than a small launch takes on the
+    device.
     """
     if encoding_type not in ENCODING_TYPES:
         raise ValueError(

@@ -89,6 +89,25 @@ class Circuit:
             if g.fidx >= self.num_features:
                 raise ValueError(f"gate {g} references feature {g.fidx} >= {self.num_features}")
 
+    def __hash__(self) -> int:
+        """The fields' hash, computed once: a circuit keys the caches of
+        every kernel wrapper (tables, geometry), and hashing its gate list
+        anew on each launch costs more host time than a small launch takes
+        on the device."""
+        try:
+            return self._hash
+        except AttributeError:
+            h = hash((self.num_qubits, self.num_features, self.num_parameters,
+                      self.gates, self.name, self.requires_clipping))
+            object.__setattr__(self, "_hash", h)
+            return h
+
+    def __getstate__(self):
+        """Without the cached hash: string hashes differ between processes."""
+        state = dict(self.__dict__)
+        state.pop("_hash", None)
+        return state
+
     @property
     def dim(self) -> int:
         return 1 << self.num_qubits

@@ -5,16 +5,23 @@
   (B, G) -> Pauli features (B, 3n) as [X | Y | Z] blocks, float32 or float64.
 * ``states_from_angles`` (K2, ``csrc/states.cu``) — port of
   ``make_pallas_states_fn``: angles (B, G) -> states (B, 2^n), complex64
-  from float32 angles, complex128 from float64 ones.
-* ``pauli_features_from_angles_fused`` (K3, ``csrc/pauli_features_fused.cu``
-  with ``csrc/warp_state.cuh``) — port of
-  ``make_pallas_pauli_features_fused_fn``: the same Pauli features through
-  the gate-fused program of ``ops/fusion.py``, float32 only like the Pallas
-  kernel; a sample's state in registers across a warp's lanes, the fused
-  coefficients built inside the kernel from the angles.
-* ``states_from_angles_fused`` (K4, ``csrc/states_fused.cu`` with
-  ``csrc/fused_program.cuh``) — port of ``make_pallas_states_fused_fn``: the
-  states through the fused program, float32 only.
+  from float32 angles (a sample's state in registers across a warp's lanes,
+  ``csrc/warp_state.cuh``, a gate at a time), complex128 from float64 ones
+  (the state in shared memory, ``csrc/statevector.cuh``).
+* ``pauli_features_from_angles_fused`` (K3, ``csrc/pauli_features_fused.cu``)
+  — port of ``make_pallas_pauli_features_fused_fn``: the same Pauli features
+  through the gate-fused program of ``ops/fusion.py``, float32 only like the
+  Pallas kernel; a sample's state in registers across a warp's lanes, the
+  fused coefficients built inside the kernel from the angles
+  (``csrc/warp_program.cuh``, the body it shares with K4).
+* ``states_from_angles_fused`` (K4, ``csrc/states_fused.cu``) — port of
+  ``make_pallas_states_fused_fn``: the states through the fused program,
+  float32 only; ``warp_program.cuh``'s body, then the write-out.
+
+K3 takes qubit q as bit q of the state's index in registers and lanes; the
+states kernels (K2 float32, K4) put the low qubits on the lanes so that a
+sample's lanes write consecutive amplitudes (``states_bit``). The kernels
+see only those physical bits: the tables built here carry the map.
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc at first
 use) and adds one to its launch count: ``.launches`` for the float32
@@ -36,8 +43,7 @@ import torch
 from . import _build
 from .circuit import Circuit
 from .fusion import (
-    DiagOp, PermOp, SU2Op, diag_patterns_concat, fuse_circuit, packed_inputs,
-    state_from_angles_fused,
+    DiagOp, PermOp, SU2Op, diag_patterns_concat, fuse_circuit, state_from_angles_fused,
 )
 from .statevector import pauli_features, state_from_angles
 
@@ -48,19 +54,29 @@ FEATURES_FUSED_SOURCE = "pauli_features_fused.cu"  # K3
 SOURCES = (SOURCE, STATES_SOURCE, FEATURES_FUSED_SOURCE, FUSED_SOURCE)
 MAX_QUBITS = 10
 _SMEM_BUDGET = 200 * 1024  # bytes a block may take (the card allows 227 KB)
-_K3_THREADS = 256               # K3's launch bound (two blocks an SM)
-_K3_SMEM_BUDGET = 112 * 1024    # so that two K3 blocks fit an SM's 228 KB
+_WARP_THREADS = 256             # the warp kernels' launch bound (two blocks an SM)
+_WARP_SMEM_BUDGET = 112 * 1024  # so that two of their blocks fit an SM's 228 KB
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _K1_ARGS = [_vp, _vp, _vp] + [_i32] * 5 + [_i64, _vp]
-_K2_ARGS = [_vp, _vp, _vp] + [_i32] * 6 + [_i64, _vp]
+_FUSED_ARGS = [_vp] * 6 + [_i32] * 9 + [_i64, _vp]
+_OCCUPANCY_ARGS = [_i32, _i32, _i64]
 _SIGNATURES = {
     SOURCE: {"dqgp_pauli_features": _K1_ARGS, "dqgp_pauli_features_f64": _K1_ARGS},
-    STATES_SOURCE: {"dqgp_states": _K2_ARGS, "dqgp_states_f64": _K2_ARGS},
-    FUSED_SOURCE: {"dqgp_states_fused": [_vp] * 4 + [_i32] * 8 + [_i64, _vp]},
-    FEATURES_FUSED_SOURCE: {
-        "dqgp_pauli_features_fused": [_vp] * 6 + [_i32] * 9 + [_i64, _vp],
-        "dqgp_pauli_features_fused_blocks_per_sm": [_i32, _i32, _i64]},
+    STATES_SOURCE: {"dqgp_states": [_vp, _vp, _vp] + [_i32] * 4 + [_i64, _vp],
+                    "dqgp_states_f64": [_vp, _vp, _vp] + [_i32] * 6 + [_i64, _vp],
+                    "dqgp_states_blocks_per_sm": _OCCUPANCY_ARGS},
+    FUSED_SOURCE: {"dqgp_states_fused": _FUSED_ARGS,
+                   "dqgp_states_fused_blocks_per_sm": _OCCUPANCY_ARGS},
+    FEATURES_FUSED_SOURCE: {"dqgp_pauli_features_fused": _FUSED_ARGS,
+                            "dqgp_pauli_features_fused_blocks_per_sm": _OCCUPANCY_ARGS},
+}
+# each warp kernel's (source, launch function, occupancy function)
+_WARP_KERNELS = {
+    "K2": (STATES_SOURCE, "dqgp_states", "dqgp_states_blocks_per_sm"),
+    "K3": (FEATURES_FUSED_SOURCE, "dqgp_pauli_features_fused",
+           "dqgp_pauli_features_fused_blocks_per_sm"),
+    "K4": (FUSED_SOURCE, "dqgp_states_fused", "dqgp_states_fused_blocks_per_sm"),
 }
 
 
@@ -85,18 +101,41 @@ def _launch(source: str, fn: str, device: torch.device, *args) -> None:
     ``device``; raise if the launch was refused."""
     lib = _library(source)
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, fn)(*args, stream)
+        # the stream's handle itself: building a torch.cuda.Stream around it
+        # costs more host time than a small launch takes on the device
+        err = getattr(lib, fn)(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: "
                            + lib.dqgp_cuda_error_string(err).decode())
 
 
+def states_bit(num_qubits: int, qubit: int) -> int:
+    """The bit of the state's index on which the states kernels (K2 float32,
+    K4) hold ``qubit``; bits 0-4 pick a lane's register, bits 5.. the lane.
+
+    Qubits 0..n-6 go to the lane bits and n-5..n-1 to the register bits, so
+    that amplitude k is register k >> (n-5) of lane k & (L-1) and the L lanes
+    of a sample hold consecutive amplitudes. Up to 5 qubits a lane holds the
+    whole sample and the map is the identity; -1 (no control) stays -1."""
+    if num_qubits <= 5 or qubit < 0:
+        return qubit
+    return qubit + 5 if qubit < num_qubits - 5 else qubit - (num_qubits - 5)
+
+
+def gate_table(circuit: Circuit, states_layout: bool = False) -> np.ndarray:
+    """(G, 3) int32 [kind, qubit, control], at least one row; with
+    ``states_layout`` the qubits are the states kernels' physical bits."""
+    n = circuit.num_qubits
+    bit = (lambda q: states_bit(n, q)) if states_layout else (lambda q: q)
+    rows = [(g.kind, bit(g.qubit), bit(g.control)) for g in circuit.gates]
+    return np.array(rows or [(0, 0, -1)], np.int32)
+
+
 @functools.lru_cache(maxsize=64)
-def _gate_table(circuit: Circuit, device: torch.device) -> torch.Tensor:
-    """(G, 3) int32 [kind, qubit, control] on ``device``, built once."""
-    rows = [(g.kind, g.qubit, g.control) for g in circuit.gates] or [(0, 0, -1)]
-    return torch.tensor(rows, dtype=torch.int32, device=device).contiguous()
+def _gate_table(circuit: Circuit, device: torch.device,
+                states_layout: bool = False) -> torch.Tensor:
+    """``gate_table`` on ``device``, built once."""
+    return torch.as_tensor(gate_table(circuit, states_layout), device=device).contiguous()
 
 
 def _threads_per_block(smem_bytes) -> int:
@@ -124,26 +163,25 @@ def launch_config(num_qubits: int, num_gates: int,
     return tpb, gstride, smem(tpb)
 
 
-def states_launch_config(num_qubits: int, row_len: int, real_bytes: int = 4,
-                         fixed_bytes: int = 0) -> tuple[int, int, int, int]:
-    """K2's and K4's (threads per block, padded row stride, padded state
-    stride, dynamic smem bytes).
+def states_launch_config(num_qubits: int, row_len: int,
+                         real_bytes: int = 8) -> tuple[int, int, int, int]:
+    """(threads per block, padded row stride, padded state stride, dynamic
+    smem bytes) of K2's shared-memory kernel, the float64 instantiation.
 
     As K1's, but the [amplitude][thread] planes' stride is padded to an odd
     word count (threads + 1), so the cooperative store's reads down a column
-    hit distinct banks; ``fixed_bytes`` is per-block data (K4's pattern
-    matrix C)."""
+    hit distinct banks."""
     dim = 1 << num_qubits
     rstride = row_len | 1
 
     def smem(tpb):
-        return real_bytes * (2 * dim * (tpb | 1) + tpb * rstride) + fixed_bytes
+        return real_bytes * (2 * dim * (tpb | 1) + tpb * rstride)
 
     tpb = _threads_per_block(smem)
     if smem(tpb) > _SMEM_BUDGET:
         raise ValueError(f"a {num_qubits}-qubit state with {row_len}-wide rows "
-                         f"and {fixed_bytes} B of tables exceeds the "
-                         f"{_SMEM_BUDGET} B shared-memory budget of one block")
+                         f"exceeds the {_SMEM_BUDGET} B shared-memory budget of "
+                         f"one block")
     return tpb, rstride, tpb | 1, smem(tpb)
 
 
@@ -224,47 +262,173 @@ def states_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
                       device=angles.device)
     if B == 0:
         return out
-    f64 = angles.dtype == torch.float64
-    tpb, gstride, sstride, smem = states_launch_config(n, G, angles.element_size())
-    _launch(STATES_SOURCE, "dqgp_states_f64" if f64 else "dqgp_states",
-            angles.device, angles.data_ptr(),
-            _gate_table(circuit, angles.device).data_ptr(), out.data_ptr(),
-            B, G, n, tpb, gstride, sstride, smem)
-    if f64:
+    if angles.dtype == torch.float64:
+        tpb, gstride, sstride, smem = states_launch_config(n, G, angles.element_size())
+        _launch(STATES_SOURCE, "dqgp_states_f64", angles.device, angles.data_ptr(),
+                _gate_table(circuit, angles.device).data_ptr(), out.data_ptr(),
+                B, G, n, tpb, gstride, sstride, smem)
         states_from_angles.launches_f64 += 1
     else:
+        geo = states_geometry(circuit)
+        _launch(STATES_SOURCE, "dqgp_states", angles.device, angles.data_ptr(),
+                _gate_table(circuit, angles.device, True).data_ptr(), out.data_ptr(),
+                B, G, n, geo.threads, geo.smem_bytes)
         states_from_angles.launches += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# K4: states through the fused program
+# The fused program's tables and geometry (K3, K4)
 # ---------------------------------------------------------------------------
 
 _OP_SU2, _OP_PERM, _OP_DIAG = 0, 1, 2
 
 
-@functools.lru_cache(maxsize=64)
-def _fused_tables(circuit: Circuit, device: torch.device):
-    """(op table (n_ops, 6) int32, pattern matrix C (2^n, KT) float32) on
-    ``device``, built once. Op rows: [type, qubit, control, row, K, flags]
-    (csrc/states_fused.cu); a DIAG row's control field holds its first
-    column of C."""
+@functools.lru_cache(maxsize=128)
+def fused_tables(circuit: Circuit, states_layout: bool = False):
+    """The tables K3 and K4 run ``circuit``'s fused program from, as numpy;
+    with ``states_layout`` under the states kernels' bit map (K4), else with
+    qubit q on bit q (K3). The kernels stage each sample's row as its G
+    angles, then its DiagOps' member angles, then (where a sample spans
+    several lanes) its SU2 ops' 8 coefficients each:
+
+    * the op table (n_ops, 6) int32, rows [type, qubit, control, first,
+      count, aux], qubit and control as physical bits: an SU2 op's gates are
+      gate-table rows [first, first + count) in application order, and aux is
+      its flags (bit 0 real, bit 1 diagonal) | the row offset of its
+      coefficients (G + n_members + 8 * slot) << 2; a DiagOp's member angles
+      lie at row offsets [first, first + K) and aux is its first column of
+      C; a PERM row is a CX;
+    * the gate table (n_gates, 2) int32, rows [gate kind, gate index into
+      the angle row], the SU2 ops' gates;
+    * the member table (n_members,) int32, each DiagOp member's gate index,
+      -1 for a CZ (its angle is pi);
+    * C (``diag_patterns_concat``, (2^n, KT) float32) permuted to (KT, A,
+      L): entry [j, r, l] is the column-j pattern of the amplitude in
+      register r of lane l of a sample's lane group (A = min(2^n, 32)
+      registers, L = 2^n / A lanes), which is amplitude l * A + r under
+      K3's map and r * L + l under the states kernels', so the lanes of a
+      group read consecutive words.
+
+    The op and gate tables have at least one row, so that the kernel
+    always gets a valid pointer; it reads no member where there is none."""
     program = fuse_circuit(circuit)
-    rows = []
+    n, G = circuit.num_qubits, circuit.num_gates
+    bit = (lambda q: states_bit(n, q)) if states_layout else (lambda q: q)
+    members = [gi for op in program.ops if isinstance(op, DiagOp)
+               for _, _, _, gi in op.members]
+    coef_at = G + len(members)
+    ops, gates, member_at = [], [], G
     for op in program.ops:
         if isinstance(op, SU2Op):
-            rows.append((_OP_SU2, op.qubit, op.control, 8 * op.slot, 0,
-                         int(op.real) | (int(op.diag) << 1)))
+            ops.append((_OP_SU2, bit(op.qubit), bit(op.control), len(gates),
+                        len(op.gate_idxs), int(op.real) | (int(op.diag) << 1)
+                        | ((coef_at + 8 * op.slot) << 2)))
+            gates += [(circuit.gates[gi].kind, gi) for gi in op.gate_idxs]
         elif isinstance(op, PermOp):
-            rows.append((_OP_PERM, op.qubit, op.control, 0, 0, 0))
+            ops.append((_OP_PERM, bit(op.qubit), bit(op.control), 0, 0, 0))
         else:  # DiagOp
-            rows.append((_OP_DIAG, 0, op.row_start - 8 * program.n_su2,
-                         op.row_start, op.K, 0))
-    table = torch.tensor(rows or [(_OP_PERM, 0, 0, 0, 0, 0)], dtype=torch.int32,
-                         device=device).contiguous()
-    cmat = torch.as_tensor(diag_patterns_concat(program), device=device).contiguous()
-    return table, cmat
+            ops.append((_OP_DIAG, 0, -1, member_at, op.K, op.row_start - 8 * program.n_su2))
+            member_at += op.K
+    cmat = diag_patterns_concat(program)
+    dim, KT = cmat.shape
+    lanes = max(1, dim // 32)
+    if states_layout:  # amplitude r * L + l
+        cperm = cmat.reshape(dim // lanes, lanes, KT).transpose(2, 0, 1)
+    else:              # amplitude l * A + r
+        cperm = cmat.reshape(lanes, dim // lanes, KT).transpose(2, 1, 0)
+    return (np.array(ops or [(_OP_PERM, 0, 0, 0, 0, 0)], np.int32),
+            np.array(gates or [(0, 0)], np.int32), np.array(members, np.int32),
+            np.ascontiguousarray(cperm))
+
+
+@functools.lru_cache(maxsize=128)
+def _fused_device_tables(circuit: Circuit, device: torch.device, states_layout: bool):
+    """``fused_tables`` on ``device``, built once."""
+    return tuple(torch.as_tensor(t, device=device).contiguous()
+                 for t in fused_tables(circuit, states_layout))
+
+
+class WarpGeometry(NamedTuple):
+    """Launch geometry of a warp kernel (K2 float32, K3, K4)."""
+
+    threads: int          # threads a block
+    lanes: int            # lanes a sample's state spreads over
+    samples: int          # samples a block works on at a time
+    smem_bytes: int       # dynamic shared memory a block
+    c_bytes: int          # of which the permuted pattern matrix C (K3, K4)
+
+
+def _warp_geometry(num_qubits: int, table_words: int, c_bytes: int,
+                   row_words: int, what: str) -> WarpGeometry:
+    """A sample's state lives in registers over max(1, 2^(n-5)) lanes, so a
+    warp works on 32 / lanes samples and no state is in shared memory. A
+    block holds its int32 tables with the batch loop's two words (padded to
+    16 bytes), C and, per warp, one word and its samples' staged rows at an
+    odd stride. 256 threads, halved until two blocks fit an SM."""
+    lanes = 1 << max(0, num_qubits - 5)
+    per_warp = 32 // lanes
+    fixed = 4 * ((table_words + 2 + 3) & ~3) + c_bytes
+    warp_bytes = 4 * (per_warp * (row_words | 1) + 1)
+    tpb = _WARP_THREADS
+    while tpb > 32 and fixed + tpb // 32 * warp_bytes > _WARP_SMEM_BUDGET:
+        tpb //= 2
+    smem = fixed + tpb // 32 * warp_bytes
+    if smem > _WARP_SMEM_BUDGET:
+        raise ValueError(f"{what} for {num_qubits} qubits ({fixed} B of tables, "
+                         f"{warp_bytes} B a warp) exceed the {_WARP_SMEM_BUDGET} B "
+                         f"a block may take")
+    return WarpGeometry(tpb, lanes, tpb // 32 * per_warp, smem, c_bytes)
+
+
+@functools.lru_cache(maxsize=128)
+def fused_geometry(circuit: Circuit) -> WarpGeometry:
+    """K3's and K4's launch geometry for ``circuit`` (csrc/warp_program.cuh):
+    the tables are the op, gate and member tables, and a sample's staged row
+    is its G angles, its phase runs' member angles and, where it spans
+    several lanes, 8 coefficients for each SU2 op. The same for both bit
+    maps."""
+    ops, gates, members, cperm = fused_tables(circuit)
+    n = circuit.num_qubits
+    coef_words = 8 * fuse_circuit(circuit).n_su2 if n > 5 else 0
+    return _warp_geometry(n, ops.size + gates.size + members.size, cperm.nbytes,
+                          circuit.num_gates + members.size + coef_words,
+                          "the fused program's tables")
+
+
+@functools.lru_cache(maxsize=128)
+def states_geometry(circuit: Circuit) -> WarpGeometry:
+    """K2's float32 launch geometry for ``circuit`` (csrc/states.cu): the
+    table is the (G, 3) gate table and a sample's staged row its G angles."""
+    G = circuit.num_gates
+    return _warp_geometry(circuit.num_qubits, 3 * G, 0, G, "K2's gate table and rows")
+
+
+def blocks_per_sm(kernel: str, geo: WarpGeometry, num_qubits: int) -> int:
+    """Resident blocks an SM holds of warp kernel ``kernel`` ("K2", "K3" or
+    "K4") at this geometry, as the CUDA occupancy calculator reckons it from
+    the build's registers and ``geo``'s shared memory (card only)."""
+    source, _, fn = _WARP_KERNELS[kernel]
+    return getattr(_library(source), fn)(num_qubits, geo.threads, geo.smem_bytes)
+
+
+def _launch_fused(kernel: str, circuit: Circuit, angles: torch.Tensor,
+                  out: torch.Tensor, states_layout: bool) -> None:
+    """One launch of K3 or K4 on (B, G) float32 CUDA angles."""
+    source, fn, _ = _WARP_KERNELS[kernel]
+    program = fuse_circuit(circuit)
+    ops, gates, members, cperm = _fused_device_tables(circuit, angles.device, states_layout)
+    geo = fused_geometry(circuit)
+    _launch(source, fn, angles.device, angles.data_ptr(), cperm.data_ptr(),
+            ops.data_ptr(), gates.data_ptr(), members.data_ptr(), out.data_ptr(),
+            angles.shape[0], circuit.num_qubits, circuit.num_gates, len(program.ops),
+            gates.shape[0], members.shape[0], program.n_su2, cperm.shape[0],
+            geo.threads, geo.smem_bytes)
+
+
+# ---------------------------------------------------------------------------
+# K4: states through the fused program
+# ---------------------------------------------------------------------------
 
 
 def states_fused_reference(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
@@ -274,36 +438,16 @@ def states_fused_reference(circuit: Circuit, angles: torch.Tensor) -> torch.Tens
 
 def states_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
     """angles (B, G) float32 -> states (B, 2^n) complex64 via the fused
-    program. The packed coefficient rows are built outside the kernel
-    (``fusion.packed_inputs``), as the JAX package builds them outside its
-    Pallas kernel."""
+    program. The kernel builds each SU2 op's 2x2 from the angles itself, as
+    the JAX package's Pallas wrapper builds its packed rows from them."""
     if not _is_cuda(angles):
         return states_fused_reference(circuit, angles)
     _check_angles(circuit, angles, "fused states", dtypes=(torch.float32,))
-    return states_from_packed(circuit, packed_inputs(fuse_circuit(circuit), angles))
-
-
-def states_from_packed(circuit: Circuit, packed: torch.Tensor) -> torch.Tensor:
-    """K4's launch on packed rows (B, R) float32 on the card -> states
-    (B, 2^n) complex64; counted in ``states_from_angles_fused.launches``."""
-    program = fuse_circuit(circuit)
-    if not _is_cuda(packed) or packed.dtype != torch.float32:
-        raise ValueError("packed rows must be a float32 CUDA tensor")
-    if packed.dim() != 2 or packed.shape[1] != program.n_rows or not packed.is_contiguous():
-        raise ValueError(f"packed rows must be contiguous (B, {program.n_rows}), got "
-                         f"{tuple(packed.shape)}")
-    n = circuit.num_qubits
-    B = packed.shape[0]
-    out = torch.empty((B, circuit.dim), dtype=torch.complex64, device=packed.device)
-    if B == 0:
+    out = torch.empty((angles.shape[0], circuit.dim), dtype=torch.complex64,
+                      device=angles.device)
+    if angles.shape[0] == 0:
         return out
-    table, cmat = _fused_tables(circuit, packed.device)
-    R, KT = program.n_rows, cmat.shape[1]
-    tpb, rstride, sstride, smem = states_launch_config(
-        n, R, 4, fixed_bytes=4 * cmat.numel())
-    _launch(FUSED_SOURCE, "dqgp_states_fused", packed.device, packed.data_ptr(),
-            cmat.data_ptr(), table.data_ptr(), out.data_ptr(), B, R, n,
-            len(program.ops), KT, tpb, rstride, sstride, smem)
+    _launch_fused("K4", circuit, angles, out, states_layout=True)
     states_from_angles_fused.launches += 1
     return out
 
@@ -320,60 +464,6 @@ def pauli_features_fused_reference(circuit: Circuit, angles: torch.Tensor) -> to
                           circuit.num_qubits)
 
 
-@functools.lru_cache(maxsize=64)
-def k3_tables(circuit: Circuit):
-    """K3's tables for ``circuit``'s fused program, as numpy. K3 stages each
-    sample's row as its G angles, then its DiagOps' member angles, then
-    (where a sample spans several lanes) its SU2 ops' 8 coefficients each:
-
-    * the op table (n_ops, 6) int32, rows [type, qubit, control, first,
-      count, aux]: an SU2 op's gates are gate-table rows [first, first +
-      count) in application order, and aux is its flags (bit 0 real, bit 1
-      diagonal) | the row offset of its coefficients (G + n_members + 8 *
-      slot) << 2; a DiagOp's member angles lie at row offsets [first, first
-      + K) and aux is its first column of C; a PERM row is a CX;
-    * the gate table (n_gates, 2) int32, rows [gate kind, gate index into
-      the angle row], the SU2 ops' gates;
-    * the member table (n_members,) int32, each DiagOp member's gate index,
-      -1 for a CZ (its angle is pi);
-    * C (``diag_patterns_concat``, (2^n, KT) float32) permuted to (KT, A,
-      L): entry [j, r, l] is C[l * A + r, j], for the amplitude in register
-      r of lane l of a sample's lane group (A = min(2^n, 32) registers, L =
-      2^n / A lanes), so the lanes of a group read consecutive words.
-
-    The op and gate tables have at least one row, so that the kernel
-    always gets a valid pointer; it reads no member where there is none."""
-    program = fuse_circuit(circuit)
-    G = circuit.num_gates
-    members = [gi for op in program.ops if isinstance(op, DiagOp)
-               for _, _, _, gi in op.members]
-    coef_at = G + len(members)
-    ops, gates, member_at = [], [], G
-    for op in program.ops:
-        if isinstance(op, SU2Op):
-            ops.append((_OP_SU2, op.qubit, op.control, len(gates), len(op.gate_idxs),
-                        int(op.real) | (int(op.diag) << 1)
-                        | ((coef_at + 8 * op.slot) << 2)))
-            gates += [(circuit.gates[gi].kind, gi) for gi in op.gate_idxs]
-        elif isinstance(op, PermOp):
-            ops.append((_OP_PERM, op.qubit, op.control, 0, 0, 0))
-        else:  # DiagOp
-            ops.append((_OP_DIAG, 0, -1, member_at, op.K, op.row_start - 8 * program.n_su2))
-            member_at += op.K
-    cmat = diag_patterns_concat(program)
-    lanes = max(1, cmat.shape[0] // 32)
-    cperm = cmat.reshape(lanes, cmat.shape[0] // lanes, cmat.shape[1]).transpose(2, 1, 0)
-    return (np.array(ops or [(_OP_PERM, 0, 0, 0, 0, 0)], np.int32),
-            np.array(gates or [(0, 0)], np.int32), np.array(members, np.int32),
-            np.ascontiguousarray(cperm))
-
-
-@functools.lru_cache(maxsize=64)
-def _k3_device_tables(circuit: Circuit, device: torch.device):
-    """``k3_tables(circuit)`` on ``device``, built once."""
-    return tuple(torch.as_tensor(t, device=device).contiguous() for t in k3_tables(circuit))
-
-
 def pauli_features_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
     """angles (B, G) float32 -> Pauli features (B, 3n) float32 via the fused
     program. The kernel builds each SU2 op's 2x2 from the angles itself,
@@ -381,67 +471,13 @@ def pauli_features_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> 
     if not _is_cuda(angles):
         return pauli_features_fused_reference(circuit, angles)
     _check_angles(circuit, angles, "fused Pauli-feature", dtypes=(torch.float32,))
-    n = circuit.num_qubits
-    B, G = angles.shape
-    out = torch.empty((B, 3 * n), dtype=torch.float32, device=angles.device)
-    if B == 0:
+    out = torch.empty((angles.shape[0], 3 * circuit.num_qubits), dtype=torch.float32,
+                      device=angles.device)
+    if angles.shape[0] == 0:
         return out
-    program = fuse_circuit(circuit)
-    ops, gates, members, cperm = _k3_device_tables(circuit, angles.device)
-    geo = fused_features_geometry(circuit)
-    _launch(FEATURES_FUSED_SOURCE, "dqgp_pauli_features_fused", angles.device,
-            angles.data_ptr(), cperm.data_ptr(), ops.data_ptr(), gates.data_ptr(),
-            members.data_ptr(), out.data_ptr(), B, n, G, len(program.ops),
-            gates.shape[0], members.shape[0], program.n_su2, cperm.shape[0],
-            geo.threads, geo.smem_bytes)
+    _launch_fused("K3", circuit, angles, out, states_layout=False)
     pauli_features_from_angles_fused.launches += 1
     return out
-
-
-class K3Geometry(NamedTuple):
-    threads: int          # threads a block
-    lanes: int            # lanes a sample's state spreads over
-    samples: int          # samples a block works on at a time
-    smem_bytes: int       # dynamic shared memory a block
-    c_bytes: int          # of which the permuted pattern matrix C
-
-
-def fused_features_geometry(circuit: Circuit) -> K3Geometry:
-    """K3's launch geometry for ``circuit`` (csrc/pauli_features_fused.cu).
-
-    A sample's state lives in registers over max(1, 2^(n-5)) lanes, so a
-    warp works on 32 / lanes samples and no state is in shared memory. A
-    block holds the int32 tables (padded to 16 bytes, with the batch loop's
-    two words), C ((2^n, KT) float32) and, per warp, one word and its
-    samples' staged rows at an odd stride: each sample's G angles, its
-    phase runs' member angles and, where it spans several lanes, 8
-    coefficients for each SU2 op. 256 threads, halved until two blocks fit
-    an SM."""
-    ops, gates, members, cperm = k3_tables(circuit)
-    n = circuit.num_qubits
-    lanes = 1 << max(0, n - 5)
-    per_warp = 32 // lanes
-    c_bytes = cperm.nbytes
-    fixed = 4 * ((ops.size + gates.size + members.size + 2 + 3) & ~3) + c_bytes
-    coef_words = 8 * fuse_circuit(circuit).n_su2 if lanes > 1 else 0
-    row_words = (circuit.num_gates + members.size + coef_words) | 1
-    warp_bytes = 4 * (per_warp * row_words + 1)
-    tpb = _K3_THREADS
-    while tpb > 32 and fixed + tpb // 32 * warp_bytes > _K3_SMEM_BUDGET:
-        tpb //= 2
-    smem = fixed + tpb // 32 * warp_bytes
-    if smem > _K3_SMEM_BUDGET:
-        raise ValueError(f"K3's tables for {n} qubits (C {c_bytes} B) exceed the "
-                         f"{_K3_SMEM_BUDGET} B a block may take")
-    return K3Geometry(tpb, lanes, tpb // 32 * per_warp, smem, c_bytes)
-
-
-def fused_features_blocks_per_sm(geo: K3Geometry, num_qubits: int) -> int:
-    """Resident K3 blocks an SM holds at this geometry, as the CUDA occupancy
-    calculator reckons it from the build's registers and ``geo``'s shared
-    memory (card only)."""
-    return _library(FEATURES_FUSED_SOURCE).dqgp_pauli_features_fused_blocks_per_sm(
-        num_qubits, geo.threads, geo.smem_bytes)
 
 
 pauli_features_from_angles.launches = 0

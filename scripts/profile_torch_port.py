@@ -3,6 +3,7 @@
 
     python scripts/profile_torch_port.py                # every cell
     python scripts/profile_torch_port.py --cell fidelity --iters 5
+    python scripts/profile_torch_port.py --cell fidelity --fusion on
 
 For each cell — ``northstar`` (chip_smoke.py phase 4's problem),
 ``fidelity`` (phase 7's, BASELINE config #5) and ``config7`` (phase 11b's,
@@ -13,8 +14,9 @@ state), then runs ``--iters`` more (default 5, 1 for config7) under
 ``torch.profiler`` and prints per iteration: the
 host wall time, the device time summed over kernels, the device's idle
 share (1 - device / wall), the kernel count, and the device time by kernel
-group with its share of the device time. Needs a CUDA device; imports
-nothing of JAX.
+group with its share of the device time. ``--fusion`` sets the fusion
+switch (``config.use_fusion``; "on" puts the fused states kernel K4 in K2's
+place in the fidelity cell). Needs a CUDA device; imports nothing of JAX.
 """
 
 import argparse
@@ -34,7 +36,8 @@ import chip_smoke as cs  # noqa: E402
 CELLS = ("northstar", "fidelity", "config7")
 GROUPS = (  # first match wins
     ("hand kernels (K1-K4)",
-     r"pauli_features_kernel|warp_features_kernel|states_kernel|states_fused_kernel"),
+     r"pauli_features_kernel|warp_features_kernel|states_kernel|warp_states_kernel"
+     r"|warp_states_fused_kernel"),
     ("eigh (condition numbers)", r"syev|sytrd|stedc|ormtr|steqr|sterf|latrd"),
     ("triangular solves", r"trsm|trsv|trtri"),
     ("Cholesky", r"potrf|potrs"),
@@ -121,6 +124,8 @@ def main() -> int:
     ap.add_argument("--cell", choices=CELLS + ("all",), default="all")
     ap.add_argument("--iters", type=int, default=None,
                     help="profiled iterations (default 5, 1 for config7)")
+    ap.add_argument("--fusion", choices=("auto", "on", "off"), default="auto",
+                    help="the fusion switch (default auto)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -128,7 +133,9 @@ def main() -> int:
     from dqgp_tpu_torch import config
 
     config.set_precision_policy()
+    config.use_fusion = args.fusion
     dev = torch.device("cuda", 0)
+    print(f"fusion {args.fusion}")
     for cell in (CELLS if args.cell == "all" else (args.cell,)):
         profile(cell, args.iters or (1 if cell == "config7" else 5), dev)
     return 0

@@ -53,9 +53,11 @@ def _angles(gen, c, B, dtype):
 def test_states_kernels_match_plain_on_card(cuda, enc):
     """K2 float32 at 2e-6 (tests/test_pallas_circuit.py), K2 and K1 float64
     at 1e-12 (tests/test_native.py), K4 at 3e-6 (tests/test_fusion.py)
-    against the plain fused engine and the plain unfused states."""
+    against the plain fused engine and the plain unfused states, for every
+    qubit count the kernels are built for (both sides of the register/lane
+    split), one launch a call."""
     gen = torch.Generator(device=cuda).manual_seed(2)
-    for n in (1, 3, 6, 10):
+    for n in range(1, K1.MAX_QUBITS + 1):
         c = build_circuit(enc, n, 2, 2)
         for B in (1, 257):
             a32, a64 = _angles(gen, c, B, torch.float32), _angles(gen, c, B, torch.float64)
@@ -69,6 +71,8 @@ def test_states_kernels_match_plain_on_card(cuda, enc):
             torch.cuda.synchronize()
             after = K1.launch_counts()
             assert all(after[k] == before[k] + 1 for k in got)
+            assert got["K2"].shape == got["K4"].shape == (B, 1 << n)
+            assert got["K2"].dtype == got["K4"].dtype == torch.complex64
             plain = K1.states_reference(c, a32)
             assert float((got["K2"] - plain).abs().max()) <= 2e-6
             assert float((got["K4"] - plain).abs().max()) <= 3e-6
@@ -79,6 +83,10 @@ def test_states_kernels_match_plain_on_card(cuda, enc):
 
 
 def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
+    """K4 takes the angles: nothing on the card's path builds packed rows
+    (fusion.packed_inputs raises if anything calls it)."""
+    from dqgp_tpu_torch.ops import fusion
+
     c = build_circuit("kyriienko", 6, 1, 1)
     spec = QuantumKernelSpec(circuit=c, kernel_type="fidelity")
     a = torch.zeros((4, c.num_gates), device=cuda)
@@ -86,6 +94,12 @@ def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
     TQ.features_from_angles(spec, a)
     TQ.features_from_angles(spec, a.double())
     monkeypatch.setattr(config, "use_fusion", "on")
+
+    def no_packed_rows(*args):
+        raise AssertionError("packed rows built on the card's path")
+
+    monkeypatch.setattr(fusion, "packed_inputs", no_packed_rows)
+    monkeypatch.setattr(fusion, "su2_products", no_packed_rows)
     TQ.features_from_angles(spec, a)
     assert K1.launch_counts() == {"K1": 0, "K1_f64": 0, "K2": 1, "K2_f64": 1, "K3": 0,
                                   "K4": 1}

@@ -1,5 +1,5 @@
 """The fusion module and the fused-program states kernel (K4): the port's
-fused program against the JAX package's, its packed kernel input, the plain
+fused program against the JAX package's, its packed rows, the plain
 fused engine (K4's plain version, which the wrapper runs on the CPU) against
 the Pallas kernel in interpret mode, and the fusion switch.
 
@@ -114,22 +114,33 @@ def test_fused_batch_padding():
 
 
 def test_fused_tables_describe_the_program():
-    """The op table and pattern matrix K4 reads (csrc/states_fused.cu)."""
+    """The op, gate and member tables and the pattern matrix K4 reads
+    (csrc/warp_program.cuh), under the states kernels' bit map."""
     tc = circuit_from_jax(build_circuit("chebyshev", 4, 2, 3))
     program = tf.fuse_circuit(tc)
-    table, cmat = K._fused_tables(tc, torch.device("cpu"))
-    assert table.shape == (len(program.ops), 6) and table.dtype == torch.int32
-    np.testing.assert_array_equal(cmat.numpy(), tf.diag_patterns_concat(program))
-    for row, op in zip(table.tolist(), program.ops):
+    ops, gates, members, cperm = K.fused_tables(tc, states_layout=True)
+    assert ops.shape == (len(program.ops), 6) and ops.dtype == np.int32
+    cmat = tf.diag_patterns_concat(program)
+    # up to 5 qubits a lane holds the whole sample: [column][register][1]
+    np.testing.assert_array_equal(cperm[:, :, 0].T, cmat)
+    coef_at, member_at, n_gates = tc.num_gates + members.size, tc.num_gates, 0
+    for row, op in zip(ops.tolist(), program.ops):
         if isinstance(op, tf.SU2Op):
-            assert row == [0, op.qubit, op.control, 8 * op.slot, 0,
-                           int(op.real) | (int(op.diag) << 1)]
+            assert row == [0, op.qubit, op.control, n_gates, len(op.gate_idxs),
+                           int(op.real) | (int(op.diag) << 1) | ((coef_at + 8 * op.slot) << 2)]
+            assert gates[n_gates:n_gates + len(op.gate_idxs)].tolist() == [
+                [tc.gates[gi].kind, gi] for gi in op.gate_idxs]
+            n_gates += len(op.gate_idxs)
         elif isinstance(op, tf.PermOp):
             assert row == [1, op.qubit, op.control, 0, 0, 0]
         else:
-            assert row == [2, 0, op.row_start - 8 * program.n_su2, op.row_start, op.K, 0]
+            assert row == [2, 0, -1, member_at, op.K, op.row_start - 8 * program.n_su2]
+            assert members[member_at - tc.num_gates:][:op.K].tolist() == [
+                gi for _, _, _, gi in op.members]
+            member_at += op.K
+    assert n_gates == len(gates) and member_at - tc.num_gates == members.size
     assert [op.K for op in program.ops if isinstance(op, tf.DiagOp)] == [4, 4, 4]
-    assert cmat.shape == (16, 12)
+    assert cmat.shape == (16, 12) and cperm.shape == (12, 16, 1)
     kyr = tf.fuse_circuit(circuit_from_jax(build_circuit("kyriienko", 6, 1, 1)))
     assert (len(kyr.ops), kyr.n_su2, kyr.n_rows) == (11, 6, 48)
     assert not any(isinstance(op, tf.DiagOp) for op in kyr.ops)
@@ -147,11 +158,15 @@ def test_fusion_enabled_matches_jax(mode, monkeypatch):
 
 @pytest.mark.parametrize("enc", ENCODING_TYPES)
 def test_fused_launch_config_fits_at_10_qubits(enc):
-    """K4's block (states, packed rows and the pattern matrix C) fits one
-    SM's shared memory for every family at the kernels' 10-qubit limit."""
+    """K4's block (the tables, the pattern matrix C and each warp's staged
+    rows; the state is in registers) fits twice in one SM's shared memory for
+    every family at the kernels' 10-qubit limit, a warp a sample."""
     tc = circuit_from_jax(build_circuit(enc, 10, 2, 2))
     program = tf.fuse_circuit(tc)
     cmat = tf.diag_patterns_concat(program)
-    tpb, rstride, sstride, smem = K.states_launch_config(
-        10, program.n_rows, 4, fixed_bytes=4 * cmat.size)
-    assert tpb >= 1 and rstride >= program.n_rows and smem <= 227 * 1024
+    geo = K.fused_geometry(tc)
+    assert geo.c_bytes == 4 * cmat.size and geo.lanes == 32
+    assert geo.threads >= 32 and geo.samples == geo.threads // 32
+    row = tc.num_gates + (program.n_rows - 8 * program.n_su2) + 8 * program.n_su2
+    assert geo.smem_bytes >= geo.c_bytes + geo.samples * 4 * row
+    assert 2 * geo.smem_bytes <= 228 * 1024

@@ -112,8 +112,8 @@ def test_fused_features_launch_config(n):
     phase-run members and, where a sample spans lanes, its SU2
     coefficients), within the budget that lets two blocks share an SM."""
     c = circuit_from_jax(build_circuit("chebyshev", n, 2, 2))
-    ops, gates, members, cperm = K.k3_tables(c)
-    geo = K.fused_features_geometry(c)
+    ops, gates, members, cperm = K.fused_tables(c)
+    geo = K.fused_geometry(c)
     lanes = max(1, 2 ** (n - 5))
     assert geo.lanes == lanes and geo.samples == geo.threads // lanes
     assert geo.c_bytes == 4 * (1 << n) * cperm.shape[0] == cperm.nbytes
@@ -127,12 +127,12 @@ def test_fused_features_launch_config(n):
         assert (geo.threads, geo.c_bytes, geo.samples) == (256, 81920, 8)
 
 
-def _walk_k3_tables(tc, a: torch.Tensor) -> torch.Tensor:
+def _walk_fused_tables(tc, a: torch.Tensor) -> torch.Tensor:
     """The packed rows K3 forms inside itself, by a plain torch walk of the
     tables it consumes: each SU2 op's 2x2 from its gate list, from the
     identity with each new gate on the left, into its slot (from its row
     offset); then each DiagOp's member angles (pi for a CZ)."""
-    ops, gates, members, _ = K.k3_tables(tc)
+    ops, gates, members, _ = K.fused_tables(tc)
     B = a.shape[0]
     one = torch.ones((B,), dtype=torch.complex64)
     zero = torch.zeros((B,), dtype=torch.complex64)
@@ -169,13 +169,13 @@ def test_k3_tables_rebuild_the_packed_rows(enc, n):
     tc = circuit_from_jax(c)
     program = tf.fuse_circuit(tc)
     a = _angles(c, 9, seed=10 + n)
-    got = _walk_k3_tables(tc, torch.tensor(a))
+    got = _walk_fused_tables(tc, torch.tensor(a))
     want = tf.packed_inputs(program, torch.tensor(a))
     assert got.dtype == want.dtype == torch.float32 and got.shape == (9, program.n_rows)
     assert torch.equal(got, want)
     jwant = np.asarray(jf.packed_inputs(jf.fuse_circuit(c), jnp.asarray(a)))
     np.testing.assert_allclose(got.numpy(), jwant, rtol=0, atol=1e-6)
-    ops, gates, members, cperm = K.k3_tables(tc)
+    ops, gates, members, cperm = K.fused_tables(tc)
     assert len(ops) == len(program.ops)
     lanes = max(1, 2 ** (n - 5))
     cmat = tf.diag_patterns_concat(program)
