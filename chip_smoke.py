@@ -10,11 +10,13 @@ Phases, one line each; any failure raises and exits non-zero:
              Pauli-feature (K3) and fused states (K4) kernels for sm_90a,
              one nvcc each, all started together, with ptxas's register and
              spill report; for each of the ten float32 instantiations (1-10
-             qubits) of K2, K3 and K4 its registers, stack frame and spills,
-             which must be 0 and 0; K3's geometry and resident blocks an SM
-             at config #7's circuit, K2's and K4's at config #5's;
+             qubits) of K1, K2, K3 and K4 its registers, stack frame and
+             spills, which must be 0 and 0; K1's geometry and resident blocks
+             an SM at the north star's circuit, K3's at config #7's, K2's and
+             K4's at config #5's;
 3. K1      — the kernel against its plain PyTorch version on the same CUDA
-             tensors: 8 circuit families x {2,3,4,5,8,10} qubits x batch
+             tensors: 8 circuit families x every qubit count 1..10 (each
+             instantiation, both sides of the register/lane split) x batch
              {1, 130, 84240}, plus the main path's own shapes (chebyshev
              4 qubits / 3 layers, G=40, at B = 84240 step rows, 1000 CV and
              predict-train rows, 200 predict-test rows), max abs diff <= 5e-6;
@@ -27,8 +29,20 @@ Phases, one line each; any failure raises and exits non-zero:
              predict; the z trajectory must stay within 5e-3 and every CV and
              test NLPD within 0.05 of the JAX float64 reference
              (tests/fixtures/torch_port_northstar.json);
+4b. gate   — the same problem trained for the 25 iterations of the bench
+             gate (bench.py:59-60) against the JAX float64 run of 25
+             (tests/fixtures/torch_port_northstar_25.json): the largest z and
+             CV-NLPD deviation up to iterations 5, 10, 15, 20 and 25, the
+             first iteration and component that leaves the bars (z 5e-3,
+             CV-NLPD 0.05), the test NLPD; K1's exact launch count again.
+             The bars are asserted over the first GATE_HELD_ITERS
+             iterations: two float32 feature engines part after that (the
+             JAX package's own raw float32 leaves its float64 trajectory
+             within ~10 iterations, bench.py:512-519);
 5. times   — CUDA-event times of one ADMM iteration (step + CV), of K1 vs
-             its plain version at B=84240, G=40, n=4, and of the projected
+             its plain version at B=84240, G=40, n=4 (a call, and from the
+             profiler the kernel alone, with its bound and share of it; the
+             kernel alone at the 1000 CV rows too), and of the projected
              1000x1000 Gram;
 6. states  — K2 (float32 <= 2e-6, float64 <= 1e-12), K1's float64
              instantiation (<= 1e-12) and K4 (<= 3e-6 against the plain fused
@@ -56,7 +70,10 @@ Phases, one line each; any failure raises and exits non-zero:
              (kyriienko, 1 layer) at the same row count, in turns, with
              their bounds and, from the profiler, each kernel's own device
              time beside K3's on the same program; K2 float64 vs plain
-             complex128 at B=1000, and the 900x900 fidelity Gram;
+             complex128 at B=1000, and the 900x900 fidelity Gram; the two
+             float64 kernels (K1 and K2, the shared-memory layout) at 10
+             qubits (kyriienko, 1 layer) at B=1000 and B=22500 against their
+             plain versions, with their float64 bounds;
 10. K3     — the fused Pauli-feature kernel against its plain version (the
              plain fused engine) and against K1's plain unfused version on
              the same CUDA tensors, max abs diff <= 8e-6: 8 families x
@@ -88,8 +105,8 @@ Phases, one line each; any failure raises and exits non-zero:
              float64 one on the first 4096 training rows;
 12. times  — one full-size ADMM iteration (step and CV), K3 (angles ->
              features) vs K1 vs the plain fused version at B=108032, n=10,
-             G=70, in turns, with K3's bound; K3 vs K1 at 4, 6 and 8 qubits
-             at the same row count (fusion's crossover on the card); the CG
+             G=70, in turns, with K3's bound; K3 vs K1 at 4, 6, 8 and 10
+             qubits at the same row count (fusion's crossover on the card); the CG
              predictor's set-up (timed in 11b: features, pivoted Cholesky,
              the alpha solve) and 512-row predict, and the float64
              gram_matvec at N=49999 with 1 and 512 right-hand sides.
@@ -98,6 +115,11 @@ The last two lines are a JSON record of the kernels (each with its bound:
 the larger of its bytes over the card's memory rate and its operations over
 its FP32 rate) and ``{"ok": true, "device": {...}}``. The script imports
 nothing of JAX.
+
+    python3 chip_smoke.py --k1
+
+runs phases 1, 2, 3, 4b and K1's times only (no result lines): the quick
+check of the Pauli-feature kernel.
 
     python3 chip_smoke.py --k3
 
@@ -123,15 +145,19 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_northstar.json")
+FIXTURE_25 = os.path.join(REPO, "tests", "fixtures", "torch_port_northstar_25.json")
 
 # The north-star problem (bench.py:52-77) plus held-out test rows.
 N_SAMPLES, N_TEST, N_AGENTS = 1000, 200, 4
 NUM_QUBITS, NUM_FEATURES, NUM_LAYERS = 4, 2, 3
 ITERS = 5
+GATE_ITERS = 25       # the bench gate's trajectory length (bench.py:59-60)
+GATE_HELD_ITERS = 7   # the prefix of it that holds the bars on the card (iteration 8
+                      # leaves by a z component of ~3): phase 4b asserts them over it
+GATE_MARKS = (5, 10, 15, 20, 25)
 Z_TOL = 5e-3      # bench.py:59-60: z rounds to 4 dp each iteration; the bars
 NLPD_TOL = 0.05   # cover last-digit flips, not a numerics divergence
 K1_TOL = 5e-6     # float32 features, as tests/test_pallas_circuit.py holds them
-K1_QUBITS = (2, 3, 4, 5, 8, 10)
 STEP_ROWS = 4 * 81 * 260  # K1's batch in one step: agents x (2P+1) shifts x Nmax
 K1_BATCHES = (1, 130, 84240)
 
@@ -143,11 +169,13 @@ FID_SAMPLES, FID_TEST_SPLIT, FID_AGENTS, FID_SEED = 1000, 0.1, 4, 42
 FID_QUBITS, FID_LAYERS = 6, 1
 FID_ITERS, FID_FUSED_ITERS = 5, 2
 FID_STEP_ROWS = 4 * 25 * 225  # K2's batch in one step: agents x (2P+1) x Nmax
-WARP_QUBITS = tuple(range(1, 11))  # every instantiation of K2's, K3's and K4's templates
+WARP_QUBITS = tuple(range(1, 11))  # every instantiation of K1's to K4's templates
 STATES_CROSSOVER_QUBITS = (4, 6, 8, 10)  # K2 vs K4, kyriienko 1 layer
 STATES_BATCHES = (1, 130, FID_STEP_ROWS)
 K2_TOL = 2e-6     # float32 states, as tests/test_pallas_circuit.py holds them
 F64_TOL = 1e-12   # float64 states and features, as tests/test_native.py
+F64_TIMING_QUBITS = 10                       # the float64 kernels' times: kyriienko, 1 layer,
+F64_TIMING_ROWS = (FID_SAMPLES, FID_STEP_ROWS)  # at the dataset's and the step's row counts
 K4_TOL = 3e-6     # fused float32 states, as tests/test_fusion.py
 NLL_RTOL = 1e-4
 FIDELITY_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_fidelity.json")
@@ -177,6 +205,7 @@ CROSSOVER_QUBITS = (4, 6, 8)     # K3 vs K1 below config #7's 10 qubits
 # operations over the rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12   # outside the tensor cores, which these kernels do not use
 CONFIG7_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_config7.json")
 
 
@@ -231,42 +260,47 @@ def _alternate_ms(fns, reps: int):
 
 
 def _device_ms(fn, reps: int) -> float:
-    """Device time of one call of ``fn`` (ms): the kernels' own time summed
-    by torch.profiler over ``reps`` calls, without the host's share of a
-    call, which is most of a small launch's CUDA-event time."""
+    """Device time of one call of ``fn`` (ms), which launches one kernel:
+    the kernel's own time as torch.profiler records it over ``reps`` calls,
+    without the host's share of a call, which is most of a small launch's
+    CUDA-event time. Averaged over the launches the profiler kept: on a
+    loaded host it drops some, and a sum over ``reps`` would then read low.
+    Where it kept none in two tries, the CUDA-event time of a call stands in
+    (an upper bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(k.device_time_total for k in prof.key_averages()) / reps * 1e-3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [k for k in prof.key_averages() if k.device_time_total > 0]
+        kept = sum(k.count for k in kernels)
+        if kept:
+            return sum(k.device_time_total for k in kernels) / kept * 1e-3
+    return _cuda_time_ms(fn, reps)
 
 
 def build_kernels(sources):
     """Build every source with its own nvcc, all started together; returns
-    {source: (report line: time and ptxas's register/spill lines, ptxas
-    log)}."""
+    {source: (report line, ptxas log: empty where a build was reused)}."""
     from dqgp_tpu_torch.ops import _build
 
     def one(src):
         t0 = time.time()
         lib_path, log = _build.build(src)
-        info = [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
-        return (f"{src} -> {os.path.basename(lib_path)} in {time.time() - t0:.2f} s "
-                f"[{'; '.join(info) if info else 'reused'}]"), log
+        return f"{src} -> {os.path.basename(lib_path)} in {time.time() - t0:.2f} s", log
 
     with ThreadPoolExecutor(len(sources)) as pool:
         return dict(zip(sources, pool.map(one, sources)))
 
 
 # the warp kernels' entry functions, templated on the qubit count
-WARP_KERNELS = {"K2": "warp_states_kernel", "K3": "warp_features_kernel",
-                "K4": "warp_states_fused_kernel"}
+WARP_KERNELS = {"K1": "warp_pauli_features_kernel", "K2": "warp_states_kernel",
+                "K3": "warp_features_kernel", "K4": "warp_states_fused_kernel"}
 
 
 def warp_ptxas(log: str, entry: str) -> dict:
@@ -455,6 +489,167 @@ def _allclose(got, want, rtol: float, atol: float) -> float:
     return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
 
 
+def northstar_spec():
+    from dqgp_tpu_torch.models.circuits import build_circuit
+    from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
+
+    return QuantumKernelSpec(
+        circuit=build_circuit("chebyshev", NUM_QUBITS, NUM_FEATURES, NUM_LAYERS),
+        kernel_type="projected", outer_kernel="matern")
+
+
+def check_k1(rand_angles) -> float:
+    """Phase 3: K1 (float32) against its plain version on the same CUDA
+    tensors, for 8 families x every qubit count K1 is built for x batch {1,
+    130, 84240}, plus the north star's own shapes. Returns the worst max abs
+    diff."""
+    import torch
+
+    from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    t0 = time.time()
+    main_circuit = northstar_spec().circuit
+    cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B)
+             for enc in ENCODING_TYPES for n in WARP_QUBITS for B in K1_BATCHES]
+    cases += [(main_circuit, B) for B in (STEP_ROWS, N_SAMPLES, N_TEST)]
+    worst = 0.0
+    for circuit, B in cases:
+        n = circuit.num_qubits
+        angles = rand_angles(circuit, B)
+        got = K.pauli_features_from_angles(circuit, angles)
+        want = K.pauli_features_reference(circuit, angles)
+        torch.cuda.synchronize()
+        check(got.shape == (B, 3 * n) and got.dtype == torch.float32,
+              f"K1 shape {tuple(got.shape)} {got.dtype}")
+        err = float((got - want).abs().max())
+        check(np.isfinite(err) and err <= K1_TOL,
+              f"K1 vs plain {circuit.name} {n}q B={B}: max abs diff {err}")
+        worst = max(worst, err)
+        del angles, got, want
+    print(f"phase 3 K1 vs plain ({time.time() - t0:.2f} s): {len(cases)} cases, max abs diff "
+          f"{worst:.3e} (tol {K1_TOL})", flush=True)
+    return worst
+
+
+def time_k1(rand_angles) -> dict:
+    """K1 vs its plain version at the north star's step shape, in turns
+    within one call (a call by CUDA events), and the kernel alone on the
+    device (profiler) there and at the CV pass's 1000 rows, with the step
+    shape's bound. Returns the times (ms) and the bound for the kernels
+    record."""
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    circuit = northstar_spec().circuit
+    angles = rand_angles(circuit, STEP_ROWS)
+    k1_ms, plain_ms = _alternate_ms(
+        [lambda: K.pauli_features_from_angles(circuit, angles),
+         lambda: K.pauli_features_reference(circuit, angles)], 20)
+    device_ms = _device_ms(lambda: K.pauli_features_from_angles(circuit, angles), 20)
+    cv_angles = rand_angles(circuit, N_SAMPLES)
+    cv_device_ms = _device_ms(lambda: K.pauli_features_from_angles(circuit, cv_angles), 20)
+    bound, bound_by = k1_bound(circuit, STEP_ROWS)
+    return {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "device_ms": device_ms, "device_ms_cv_rows": cv_device_ms}
+
+
+def k1_times_text(t: dict) -> str:
+    return (f"K1 {t['ms']:.4f} ms a call vs plain {t['plain_ms']:.4f} ms at B={STEP_ROWS} "
+            f"G={northstar_spec().circuit.num_gates} n={NUM_QUBITS} "
+            f"({t['plain_ms'] / t['ms']:.1f}x), the kernel alone on the device (profiler) "
+            f"{t['device_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}), K1 at {t['bound_ms'] / t['ms']:.1%} of it a call, "
+            f"{t['bound_ms'] / t['device_ms']:.1%} the kernel alone; the kernel alone at "
+            f"B={N_SAMPLES} {t['device_ms_cv_rows']:.4f} ms")
+
+
+def gate_deviations(z, cv, ref):
+    """A north-star run (z (T, P), CV-NLPD (T,)) against the reference's
+    first T iterations: (per-iteration largest |z - z_ref|, per-iteration
+    |cv - cv_ref|, the number of leading iterations inside both bars, and
+    the first departure as (iteration, "z[component]" or "CV-NLPD",
+    deviation), or None)."""
+    z, cv = np.asarray(z, np.float64), np.asarray(cv, np.float64)
+    T = len(z)
+    z_abs = np.abs(z - np.asarray(ref["z_trajectory"][:T]))
+    z_dev = z_abs.max(axis=1)
+    cv_dev = np.abs(cv - np.asarray(ref["cv_nlpd"][:T]))
+    for i in range(T):
+        if not z_dev[i] <= Z_TOL:
+            comp = int(np.argmax(np.where(np.isnan(z_abs[i]), np.inf, z_abs[i])))
+            return z_dev, cv_dev, i, (i + 1, f"z[{comp}]", float(z_dev[i]))
+        if not cv_dev[i] <= NLPD_TOL:
+            return z_dev, cv_dev, i, (i + 1, "CV-NLPD", float(cv_dev[i]))
+    return z_dev, cv_dev, T, None
+
+
+def northstar_gate(dev) -> dict:
+    """Phase 4b: the north-star problem trained for the bench gate's 25
+    iterations through K1, against the JAX float64 run of 25."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.data import split_data_numpy
+    from dqgp_tpu_torch.driver import TrainConfig, train
+    from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
+    from dqgp_tpu_torch.models.gp.posterior import predict_quantum_gp
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    with open(FIXTURE_25) as f:
+        ref = json.load(f)
+    X, Y, X_test, Y_test = make_problem()
+    check(problem_digest(X, Y, X_test, Y_test) == ref["problem"]["sha256"]
+          and ref["iterations"] == GATE_ITERS, "the 25-iteration fixture is another problem's")
+    spec = northstar_spec()
+    splits = split_data_numpy(X, Y, N_AGENTS, "regional")
+    cfg = TrainConfig(max_iter=GATE_ITERS, verbose=False)
+    K.reset_launch_counts()
+    t0 = time.time()
+    res = train(spec, splits, X, Y, cfg, device=dev)
+    mean, var = predict_quantum_gp(
+        spec, torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev),
+        torch.as_tensor(X_test, device=dev), torch.as_tensor(res.z, device=dev),
+        noise_std=cfg.noise_std)
+    metrics = evaluate_predictions(Y_test, mean, var)
+    torch.cuda.synchronize()
+    gate_s = time.time() - t0
+    counts = K.launch_counts()
+    rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
+    check(counts["K1"] == 2 * GATE_ITERS + 2 + rescores and sum(counts.values()) == counts["K1"],
+          f"gate launches {counts}: want K1 = 2*{GATE_ITERS} + 2 + {rescores} and no other kernel")
+    check(res.iterations == GATE_ITERS and res.converged_by == ref["converged_by"],
+          f"gate run stopped {res.converged_by}@{res.iterations}")
+    z = np.array([h["consensus_params"] for h in res.cv_history])
+    cv = np.array([h["consensus_cv_score"] for h in res.cv_history])
+    check(bool(np.all(np.isfinite(z))) and bool(np.all(np.isfinite(cv)))
+          and bool(torch.isfinite(mean).all()) and bool(torch.isfinite(var).all()),
+          "non-finite z, CV score or prediction in the gate run")
+    z_dev, cv_dev, held, first = gate_deviations(z, cv, ref)
+    # the same deviation as a distance on the torus: z is wrapped to one
+    # period, so a component next to the seam reads as a whole period apart
+    wrapped = np.abs(z - np.asarray(ref["z_trajectory"][:len(z)])) % M.PERIOD
+    torus_dev = np.minimum(wrapped, M.PERIOD - wrapped).max(axis=1)
+    nlpd_dev = abs(metrics["nlpd"] - ref["test_metrics"]["nlpd"])
+    print(f"phase 4b north-star gate: {GATE_ITERS} ADMM iterations + predict in {gate_s:.2f} s; "
+          f"K1 launches {counts['K1']} (= 2*{GATE_ITERS} + 2 + {rescores}); largest deviation "
+          f"from the JAX float64 run up to iteration "
+          + ", ".join(f"{m}: z {z_dev[:m].max():.1e} (on the torus {torus_dev[:m].max():.1e}) "
+                      f"/ CV-NLPD {cv_dev[:m].max():.1e}" for m in GATE_MARKS)
+          + f" (bars {Z_TOL} / {NLPD_TOL}); inside both bars for the first {held} iterations"
+          + (f", first out at iteration {first[0]}: {first[1]} by {first[2]:.3e} (on the "
+             f"torus {torus_dev[first[0] - 1]:.3e})" if first else "")
+          + f"; test NLPD {metrics['nlpd']:.4f} vs {ref['test_metrics']['nlpd']:.4f} (dev "
+          f"{nlpd_dev:.1e}, bar {NLPD_TOL}); asserted over the first {GATE_HELD_ITERS}",
+          flush=True)
+    check(held >= GATE_HELD_ITERS, f"the gate's bars hold for {held} iterations, fewer than "
+          f"{GATE_HELD_ITERS}: first out {first}")
+    if GATE_HELD_ITERS == GATE_ITERS:
+        check(nlpd_dev <= NLPD_TOL, f"gate test NLPD deviates {nlpd_dev} > {NLPD_TOL}")
+    return {"held_iterations": held, "first_out": first, "z_dev": float(z_dev.max()),
+            "z_torus_dev": float(torus_dev.max()), "cv_dev": float(cv_dev.max()),
+            "test_nlpd_dev": nlpd_dev}
+
+
 def check_k3(rand_angles):
     """Phase 10: K3 against its plain version (the plain fused engine) and
     K1's plain unfused version on the same CUDA tensors, for 8 families x
@@ -494,9 +689,9 @@ def check_k3(rand_angles):
 
 def time_k3(rand_angles, smi: str) -> dict:
     """K3 (angles -> features) vs K1 vs the plain fused version at config #7's
-    step shape, in turns within one call, and K3 vs K1 at 4, 6 and 8 qubits
-    (chebyshev, 2 layers) at the same row count: fusion's crossover on the
-    card. Returns the times (ms) and K3's bound."""
+    step shape (10 qubits), in turns within one call, and K3 vs K1 at 4, 6
+    and 8 qubits (chebyshev, 2 layers) at the same row count: fusion's
+    crossover on the card. Returns the times (ms) and K3's bound."""
     from dqgp_tpu_torch.models.circuits import build_circuit
     from dqgp_tpu_torch.ops import cuda_circuit as K
 
@@ -515,6 +710,7 @@ def time_k3(rand_angles, smi: str) -> dict:
         crossover[n] = _alternate_ms([lambda: K.pauli_features_from_angles_fused(c, a),
                                       lambda: K.pauli_features_from_angles(c, a)], 10)
         del a
+    crossover[C7_QUBITS] = [k3_ms, k1_ms]
     bound_ms, bound_by = k3_bound(circuit, C7_STEP_ROWS)
     print(f"phase 12 K3 times ({time.time() - t0:.2f} s) [{smi}]: at B={C7_STEP_ROWS} "
           f"n={C7_QUBITS} G={circuit.num_gates}: K3 {k3_ms:.3f} ms vs K1 {k1_ms:.3f} ms vs "
@@ -571,22 +767,28 @@ def feature_ops(n: int) -> int:
     return n * (16 * (1 << (n - 1)) + 2)
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(the least time the card could take, in ms; "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound(circuit, B: int):
-    """K1: angles (B, G) in, features (B, 3n) out, float32."""
+def k1_bound(circuit, B: int, real_bytes: int = 4):
+    """K1: angles (B, G) in, features (B, 3n) out, float32 (or float64
+    against the card's FP64 rate with ``real_bytes`` 8)."""
     n = circuit.num_qubits
-    return bound_ms(4 * B * (circuit.num_gates + 3 * n),
-                    B * (gate_ops(circuit) + feature_ops(n)))
+    return bound_ms(real_bytes * B * (circuit.num_gates + 3 * n),
+                    B * (gate_ops(circuit) + feature_ops(n)),
+                    FP64_OPS_PER_S if real_bytes == 8 else FP32_OPS_PER_S)
 
 
-def k2_bound(circuit, B: int):
-    """K2: angles (B, G) float32 in, states (B, 2^n) complex64 out."""
-    return bound_ms(4 * B * circuit.num_gates + 8 * B * circuit.dim, B * gate_ops(circuit))
+def k2_bound(circuit, B: int, real_bytes: int = 4):
+    """K2: angles (B, G) float32 in, states (B, 2^n) complex64 out (or
+    float64 and complex128 against the card's FP64 rate with ``real_bytes``
+    8)."""
+    return bound_ms(real_bytes * B * (circuit.num_gates + 2 * circuit.dim),
+                    B * gate_ops(circuit),
+                    FP64_OPS_PER_S if real_bytes == 8 else FP32_OPS_PER_S)
 
 
 def k3_bound(circuit, B: int):
@@ -666,8 +868,10 @@ def time_states(rand_angles, smi: str) -> dict:
     same program too: the fused body under its own bit map with a reduction
     where K4 has its store, which is what the states kernels' map and
     write-out cost. Then K2's float64 instantiation vs plain complex128 at
-    the dataset's 1000 rows. Returns each kernel's times (ms) and bound for
-    the kernels record."""
+    the dataset's 1000 rows, and the two float64 kernels (K1's and K2's
+    shared-memory layout) at 10 qubits against their plain versions and
+    float64 bounds. Returns each kernel's times (ms) and bound for the
+    kernels record."""
     import torch
 
     from dqgp_tpu_torch.models.circuits import build_circuit
@@ -699,6 +903,17 @@ def time_states(rand_angles, smi: str) -> dict:
     k2_64_ms, k2_64_plain_ms = _alternate_ms(
         [lambda: K.states_from_angles(fid_circuit, a64),
          lambda: K.states_reference(fid_circuit, a64)], 20)
+    # the float64 kernels at 10 qubits: [rows][K1, K1 plain, K2, K2 plain], bounds
+    c64 = build_circuit("kyriienko", F64_TIMING_QUBITS, 1, FID_LAYERS)
+    f64 = {}
+    for B in F64_TIMING_ROWS:
+        a64 = rand_angles(c64, B, torch.float64)
+        times = _alternate_ms([lambda: K.pauli_features_from_angles(c64, a64),
+                               lambda: K.pauli_features_reference(c64, a64),
+                               lambda: K.states_from_angles(c64, a64),
+                               lambda: K.states_reference(c64, a64)], 3)
+        f64[B] = (*times, k1_bound(c64, B, 8), k2_bound(c64, B, 8))
+        del a64
     k2_b, k2_by = k2_bound(fid_circuit, FID_STEP_ROWS)
     k4_b, k4_by = k4_bound(fid_circuit, FID_STEP_ROWS)
     print(f"phase 9 states times ({time.time() - t0:.2f} s) [{smi}]: at B={FID_STEP_ROWS} "
@@ -716,13 +931,21 @@ def time_states(rand_angles, smi: str) -> dict:
                       f"{d4:.4f} / K3 {d3:.4f} ms"
                       for n, (t2, b2, t4, b4, d2, d4, d3) in crossover.items())
           + f"; K2 f64 {k2_64_ms:.4f} ms vs plain c128 {k2_64_plain_ms:.4f} ms at "
-          f"B={FID_SAMPLES}", flush=True)
+          f"B={FID_SAMPLES}; the float64 kernels at {F64_TIMING_QUBITS} qubits (kyriienko 1 "
+          f"layer, G={c64.num_gates}; bounds against {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s FP64): "
+          + "; ".join(f"B={B}: K1 f64 {t1:.3f} ms vs plain {p1:.3f} ms, bound {b1[0]:.5f} ms "
+                      f"({b1[1]}), {b1[0] / t1:.2%} of it; K2 f64 {t2:.3f} ms vs plain {p2:.3f} "
+                      f"ms, bound {b2[0]:.5f} ms ({b2[1]}), {b2[0] / t2:.2%} of it"
+                      for B, (t1, p1, t2, p2, b1, b2) in f64.items()), flush=True)
     cross = {str(n): dict(zip(("k2_ms", "k2_bound_ms", "k4_ms", "k4_bound_ms",
                                "k2_device_ms", "k4_device_ms", "k3_device_ms"), t))
              for n, t in crossover.items()}
+    f64_rec = {str(B): {"k1_ms": t1, "k1_plain_ms": p1, "k1_bound_ms": b1[0],
+                        "k2_ms": t2, "k2_plain_ms": p2, "k2_bound_ms": b2[0]}
+               for B, (t1, p1, t2, p2, b1, b2) in f64.items()}
     return {"K2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_b, "bound_by": k2_by,
                    "device_ms": k2_dev_ms, "ms_f64": k2_64_ms, "plain_ms_f64": k2_64_plain_ms,
-                   "k2_vs_k4_by_qubits": cross},
+                   "k2_vs_k4_by_qubits": cross, "f64_at_10_qubits_by_rows": f64_rec},
             "K4": {"ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_b, "bound_by": k4_by,
                    "device_ms": k4_dev_ms}}
 
@@ -940,6 +1163,8 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--k1", action="store_true",
+                    help="phases 1, 2, 3, 4b and K1's times only, without the result lines")
     ap.add_argument("--k3", action="store_true",
                     help="phases 1, 2, 10 and K3's times only, without the result lines")
     ap.add_argument("--states", action="store_true",
@@ -954,11 +1179,10 @@ def main(argv=None) -> int:
     from dqgp_tpu_torch import config
     from dqgp_tpu_torch.data import split_data_numpy
     from dqgp_tpu_torch.driver import TrainConfig, train
-    from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
+    from dqgp_tpu_torch.models.circuits import build_circuit
     from dqgp_tpu_torch.models.gp.cv import cv_fold_scores_impl, kfold_pad_indices
     from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
     from dqgp_tpu_torch.models.gp.posterior import predict_quantum_gp
-    from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
     from dqgp_tpu_torch.models.kernels.quantum_kernel import (
         gram_from_features, kernel_features)
     from dqgp_tpu_torch.ops import cuda_circuit as K
@@ -980,7 +1204,7 @@ def main(argv=None) -> int:
     builds = build_kernels(K.SOURCES)
     for src in K.SOURCES:
         K._library(src)
-    warp_sources = {"K2": K.STATES_SOURCE, "K3": K.FEATURES_FUSED_SOURCE,
+    warp_sources = {"K1": K.SOURCE, "K2": K.STATES_SOURCE, "K3": K.FEATURES_FUSED_SOURCE,
                     "K4": K.FUSED_SOURCE}
     regs = {}
     for name, src in warp_sources.items():
@@ -992,22 +1216,24 @@ def main(argv=None) -> int:
         check(all(info[1:] == (0, 0, 0) for info in regs[name].values()),
               f"{name} uses a stack frame or spills: {regs[name]}")
     fid_circuit = build_circuit("kyriienko", FID_QUBITS, 1, FID_LAYERS)
-    geos = {"K2": (K.states_geometry(fid_circuit), FID_QUBITS),
-            "K3": (K.fused_geometry(config7_spec().circuit), C7_QUBITS),
-            "K4": (K.fused_geometry(fid_circuit), FID_QUBITS)}
-    per_sm = {name: K.blocks_per_sm(name, geo, n) for name, (geo, n) in geos.items()}
+    main_circuit = northstar_spec().circuit
+    # each warp kernel's geometry at its path's circuit: (geometry, qubits, path)
+    geos = {"K1": (K.features_geometry(main_circuit), NUM_QUBITS, "the north star"),
+            "K2": (K.states_geometry(fid_circuit), FID_QUBITS, "config #5"),
+            "K3": (K.fused_geometry(config7_spec().circuit), C7_QUBITS, "config #7"),
+            "K4": (K.fused_geometry(fid_circuit), FID_QUBITS, "config #5")}
+    per_sm = {name: K.blocks_per_sm(name, geo, n) for name, (geo, n, _) in geos.items()}
     print(f"phase 2 build ({time.time() - t0:.2f} s): "
-          + " | ".join(f"{builds[src][0].split(' [')[0]}" if src in warp_sources.values()
-                       else builds[src][0] for src in K.SOURCES)
+          + " | ".join(builds[src][0] for src in K.SOURCES)
           + " | ptxas by qubit count (registers, stack B, spill stores B, spill loads B): "
           + "; ".join(f"{name}: " + (", ".join(f"{n}: {info}" for n, info in r.items())
                                      or "reused") for name, r in regs.items())
           + " | " + "; ".join(
-              f"{name} at config #{7 if name == 'K3' else 5}'s circuit ({n} qubits): "
+              f"{name} at {path}'s circuit ({n} qubits): "
               f"{geo.threads} threads per block, {geo.lanes} lanes a sample, {geo.samples} "
               f"samples a block, {geo.smem_bytes} B dynamic shared memory (C {geo.c_bytes} B), "
               f"{per_sm[name]} blocks an SM ({per_sm[name] * geo.threads // 32} warps)"
-              for name, (geo, n) in geos.items()), flush=True)
+              for name, (geo, n, path) in geos.items()), flush=True)
     check(all(v >= 1 for v in per_sm.values()), f"a warp kernel does not fit an SM: {per_sm}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1016,34 +1242,21 @@ def main(argv=None) -> int:
         return (torch.rand((B, circuit.num_gates), generator=gen, device=dev,
                            dtype=dtype) * 4.0 - 1.0) * np.pi
 
+    if args.k1:
+        check_k1(rand_angles)
+        northstar_gate(dev)
+        print(f"phase 5 K1 times [{smi}]: {k1_times_text(time_k1(rand_angles))}", flush=True)
     if args.k3:
         check_k3(rand_angles)
         time_k3(rand_angles, smi)
     if args.states:
         check_states(rand_angles)
         time_states(rand_angles, smi)
-    if args.k3 or args.states:
+    if args.k1 or args.k3 or args.states:
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
-    main_circuit = build_circuit("chebyshev", NUM_QUBITS, NUM_FEATURES, NUM_LAYERS)
-    k1_cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B)
-                for enc in ENCODING_TYPES for n in K1_QUBITS for B in K1_BATCHES]
-    k1_cases += [(main_circuit, B) for B in (STEP_ROWS, N_SAMPLES, N_TEST)]
-    worst = 0.0
-    for circuit, B in k1_cases:
-        n = circuit.num_qubits
-        angles = rand_angles(circuit, B)
-        got = K.pauli_features_from_angles(circuit, angles)
-        want = K.pauli_features_reference(circuit, angles)
-        torch.cuda.synchronize()
-        check(got.shape == (B, 3 * n), f"K1 shape {tuple(got.shape)}")
-        err = float((got - want).abs().max())
-        check(np.isfinite(err) and err <= K1_TOL,
-              f"K1 vs plain {circuit.name} {n}q B={B}: max abs diff {err}")
-        worst = max(worst, err)
-    print(f"phase 3 K1 vs plain: {len(k1_cases)} cases, max abs diff {worst:.3e} "
-          f"(tol {K1_TOL})", flush=True)
+    worst = check_k1(rand_angles)
 
     # 4. the main path ------------------------------------------------------------
     with open(FIXTURE) as f:
@@ -1051,8 +1264,7 @@ def main(argv=None) -> int:
     X, Y, X_test, Y_test = make_problem()
     check(problem_digest(X, Y, X_test, Y_test) == ref["problem"]["sha256"],
           "north-star data differ from the fixture's")
-    spec = QuantumKernelSpec(circuit=main_circuit, kernel_type="projected",
-                             outer_kernel="matern")
+    spec = northstar_spec()
     splits = split_data_numpy(X, Y, N_AGENTS, "regional")
     check(N_AGENTS * (2 * spec.num_parameters + 1) * max(len(x) for x, _ in splits)
           == STEP_ROWS, "the step's K1 batch is not the one phase 3 checked")
@@ -1096,6 +1308,10 @@ def main(argv=None) -> int:
     check(cv_dev <= NLPD_TOL, f"CV-NLPD deviates {cv_dev} > {NLPD_TOL}")
     check(nlpd_dev <= NLPD_TOL, f"test NLPD deviates {nlpd_dev} > {NLPD_TOL}")
 
+    # 4b. the bench gate's 25 iterations (its launches are not phase 4's: the
+    # counts were read above)
+    gate = northstar_gate(dev)
+
     # 5. times (after warm-up; launches here are not the main path's) -------
     step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std)
     batch = make_agent_batch(splits, dev)
@@ -1111,11 +1327,7 @@ def main(argv=None) -> int:
     iteration()
     iter_ms = _cuda_time_ms(iteration, 5)
 
-    circuit = spec.circuit
-    angles = rand_angles(circuit, STEP_ROWS)
-    k1_ms, plain_ms = _alternate_ms(
-        [lambda: K.pauli_features_from_angles(circuit, angles),
-         lambda: K.pauli_features_reference(circuit, angles)], 20)
+    k1 = time_k1(rand_angles)
 
     z32 = torch.as_tensor(res.z, device=dev)
 
@@ -1125,9 +1337,7 @@ def main(argv=None) -> int:
     gram_1000()
     gram_ms = _cuda_time_ms(gram_1000, 20)
     print(f"phase 5 times [{smi}]: ADMM iteration (step + 5-fold CV) "
-          f"{iter_ms:.3f} ms; K1 {k1_ms:.4f} ms vs plain {plain_ms:.4f} ms at "
-          f"B={STEP_ROWS} G={circuit.num_gates} n={circuit.num_qubits} "
-          f"({plain_ms / k1_ms:.1f}x); 1000x1000 projected Gram "
+          f"{iter_ms:.3f} ms; {k1_times_text(k1)}; 1000x1000 projected Gram "
           f"{gram_ms:.4f} ms ({1e6 / (gram_ms * 1e-3):.3e} entries/s)", flush=True)
 
     # 6. K2, K1 float64 and K4 vs their plain versions on the card ------------
@@ -1238,9 +1448,8 @@ def main(argv=None) -> int:
         {"name": "pauli_features (K1)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:392",
-         "launches": launches, "max_abs_err": worst, "ms": k1_ms, "plain_ms": plain_ms,
-         **dict(zip(("bound_ms", "bound_by"), k1_bound(main_circuit, STEP_ROWS))),
-         "library_ms": None, "max_abs_err_f64": err["K1_f64"]},
+         "launches": launches, "max_abs_err": worst, **k1,
+         "library_ms": None, "max_abs_err_f64": err["K1_f64"], "gate_25_iterations": gate},
         {"name": "states (K2)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:238",

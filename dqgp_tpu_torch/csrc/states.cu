@@ -16,9 +16,10 @@
 // across a lane group (warp_state.cuh: 32 complex amplitudes a lane, a whole
 // warp a sample at 10 qubits, a lane a sample at n <= 5), and the kernel
 // applies the circuit's gates one at a time, in the circuit's order, through
-// apply_gate: it stays the unfused sequence, the independent check of the
-// fused program (K4). Shared memory holds the gate table and each warp's
-// staged angle rows (loaded coalesced, at an odd stride); no state. The
+// apply_gate (run_gate_batch, the batch loop it shares with K1): it stays
+// the unfused sequence, the independent check of the fused program (K4).
+// Shared memory holds the gate table and each warp's staged angle rows
+// (loaded coalesced, at an odd stride); no state. The
 // gate table gives qubits as physical bits under the states kernels' map
 // (ops/cuda_circuit.py::states_bit): qubits 0..n-6 on the lane bits, n-5..n-1
 // on the register bits, so that for each register the lanes of a sample
@@ -29,10 +30,10 @@
 // reports no stack frame and no spills for any of the ten (chip_smoke.py's
 // phase 2 fails otherwise). Trig is warp_state.cuh's sin_cos.
 //
-// Design, float64 (states_kernel<double>): 2^n complex128 amplitudes over
+// Design, float64 (states_kernel_f64): 2^n complex128 amplitudes over
 // the same lanes would be 128 registers of state a lane at n >= 5, which
-// does not fit, so the float64 instantiation keeps the shared-memory layout
-// of K1's gate loop (statevector.cuh): one thread per sample, the state
+// does not fit, so the float64 kernel keeps the shared-memory layout
+// of statevector.cuh's gate loop: one thread per sample, the state
 // resident in shared memory as [amplitude][thread] planes at an odd stride,
 // and after a barrier a cooperative store, consecutive threads taking
 // consecutive amplitudes of one row. It runs once a dataset (B = 1000) and
@@ -51,84 +52,33 @@ namespace {
 
 using namespace dqgp::warp;
 
-constexpr int kGateFields = 3;  // [kind, qubit, control]
-
 // float32: gates points at the (G, 3) int32 table [kind, bit, control bit],
-// out at (B, 2^N) complex64.
+// out at (B, 2^N) complex64. The batch loop is warp_state.cuh's
+// run_gate_batch, shared with the Pauli-feature kernel (K1).
 template <int N>
 __global__ void __launch_bounds__(kMaxThreads, kStatesMinBlocks)
 warp_states_kernel(const float* __restrict__ angles,
                    const int* __restrict__ gates, float* __restrict__ out,
                    int B, int G) {
-  using Geo = Geometry<N>;
-  extern __shared__ __align__(16) float smem[];
-  const int gate_words = kGateFields * G;
-  // the gate table, then the batch loop's bound and stride
-  const int table_words = (gate_words + 2 + 3) & ~3;
-  const int rstride = G | 1;
-  int* gates_s = reinterpret_cast<int*>(smem);
-  volatile int* loop_s = gates_s + gate_words;  // [groups, stride]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // Per warp: its samples' staged angle rows, then one word that holds the
-  // group index across the gate loop (so that no register does).
-  float* stage = smem + table_words + warp * (Geo::kSamples * rstride + 1);
-  volatile int* group_word = reinterpret_cast<volatile int*>(stage + Geo::kSamples * rstride);
-
-  for (int i = threadIdx.x; i < gate_words; i += blockDim.x) gates_s[i] = gates[i];
-  if (threadIdx.x == 0) {
-    loop_s[0] = (B + Geo::kSamples - 1) / Geo::kSamples;
-    loop_s[1] = gridDim.x * (blockDim.x >> 5);
-  }
-  __syncthreads();
-
-  const int lig = lane & (Geo::kL - 1);  // lane within the sample's group
-  const int sw = lane / Geo::kL;         // the warp's sample this lane works on
-  const float* row = stage + sw * rstride;
-  for (int g = blockIdx.x * (blockDim.x >> 5) + warp; g < loop_s[0];) {
-    const int s0 = g * Geo::kSamples;
-    __syncwarp();
-    if (lane == 0) *group_word = g;
-    for (int s = 0; s < Geo::kSamples; ++s) {
-      const bool here = s0 + s < B;
-      const float* src = angles + (long long)(s0 + s) * G;
-      float* dst = stage + s * rstride;
-      for (int j = lane; j < G; j += 32) dst[j] = here ? src[j] : 0.f;
-    }
-    __syncwarp();
-
-    float re[Geo::kA], im[Geo::kA];
-#pragma unroll
-    for (int r = 0; r < Geo::kA; ++r) {
-      re[r] = 0.f;
-      im[r] = 0.f;
-    }
-    re[0] = lig == 0 ? 1.f : 0.f;
-
-    for (int j = 0; j < G; ++j) {
-      const int* gate = gates_s + kGateFields * j;
-      apply_gate<N>(re, im, gate[0], gate[1], gate[2], row[j], lig);
-    }
-
-    g = *group_word;
-    const int b = g * Geo::kSamples + sw;
-    store_state<N>(re, im, lig, out + (long long)b * (2 * Geo::kDim), b < B);
-    g += loop_s[1];
-  }
+  run_gate_batch<N>(angles, gates, B, G,
+                    [out, B](const float (&re)[Geometry<N>::kA],
+                             const float (&im)[Geometry<N>::kA], int lig, int b) {
+    store_state<N>(re, im, lig, out + (long long)b * (2 * Geometry<N>::kDim), b < B);
+  });
 }
 
 // float64: one thread per sample, the state in shared memory.
-template <typename T>
-__global__ void states_kernel(const T* __restrict__ angles,
-                              const int* __restrict__ gates,
-                              T* __restrict__ out,
-                              int B, int G, int n, int gstride, int sstride) {
+__global__ void states_kernel_f64(const double* __restrict__ angles,
+                                  const int* __restrict__ gates,
+                                  double* __restrict__ out,
+                                  int B, int G, int n, int gstride, int sstride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tpb = blockDim.x;
   const int tid = threadIdx.x;
   const int dim = 1 << n;
-  T* re = reinterpret_cast<T*>(smem_raw);  // [dim][sstride]
-  T* im = re + (size_t)dim * sstride;      // [dim][sstride]
-  T* ang = im + (size_t)dim * sstride;     // [tpb][gstride]
+  double* re = reinterpret_cast<double*>(smem_raw);  // [dim][sstride]
+  double* im = re + (size_t)dim * sstride;            // [dim][sstride]
+  double* ang = im + (size_t)dim * sstride;           // [tpb][gstride]
 
   const long long b0 = (long long)blockIdx.x * tpb;
   const int rows = (int)min((long long)tpb, (long long)B - b0);
@@ -141,9 +91,8 @@ __global__ void states_kernel(const T* __restrict__ angles,
                       G, n);
   }
   __syncthreads();
-  using C2 = typename dqgp::Complex2<T>::type;
-  dqgp::store_states<T>(reinterpret_cast<C2*>(out) + b0 * dim, re, im,
-                        sstride, rows, n);
+  dqgp::store_states(reinterpret_cast<double2*>(out) + b0 * dim, re, im,
+                     sstride, rows, n);
 }
 
 }  // namespace
@@ -190,12 +139,12 @@ int dqgp_states_f64(const double* angles, const int* gates, double* out,
                     long long smem_bytes, void* stream) {
   if (smem_bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        states_kernel<double>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        states_kernel_f64, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (B + tpb - 1) / tpb;
-  states_kernel<double><<<blocks, tpb, (size_t)smem_bytes, (cudaStream_t)stream>>>(
+  states_kernel_f64<<<blocks, tpb, (size_t)smem_bytes, (cudaStream_t)stream>>>(
       angles, gates, out, B, G, n, gstride, sstride);
   return (int)cudaGetLastError();
 }

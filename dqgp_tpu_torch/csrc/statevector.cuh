@@ -1,16 +1,15 @@
-// Statevector gate loop shared by the Pauli-feature kernel (K1,
-// pauli_features.cu) and the states kernel (K2, states.cu).
+// Float64 statevector gate loop shared by the float64 instantiations of the
+// Pauli-feature kernel (K1, pauli_features.cu) and the states kernel (K2,
+// states.cu): the reference-grade path that the JAX package runs in
+// complex128 on CPU and GPU. The float32 kernels keep the state in registers
+// (warp_state.cuh); 2^n complex128 amplitudes over the same lanes do not fit
+// them.
 //
 // One thread runs one sample's gate sequence on a state held in shared
 // memory as [amplitude][thread]: amplitude k of the thread's state lies at
 // re[k * stride] and im[k * stride], where re and im already point at the
 // thread's column. The threads of a warp then touch consecutive words at
 // every step, and no thread waits on another inside the gate loop.
-//
-// The real type T is float (the production path, like the Pallas kernels it
-// replaces) or double (the reference-grade float64 path that the JAX package
-// runs in complex128 on CPU and GPU). The float instantiation does exactly
-// the arithmetic K1 did before the loop moved here.
 
 #pragma once
 
@@ -21,30 +20,12 @@ namespace dqgp {
 // Gate kinds, as in dqgp_tpu_torch/ops/circuit.py.
 enum { RX = 0, RY, RZ, H, CX, CZ, CRX, CRY, CRZ, RZZ };
 
-template <typename T>
-struct Real;
-
-template <>
-struct Real<float> {
-  static constexpr float kSqrt1_2 = 0.7071067811865476f;
-  static __device__ __forceinline__ void sin_cos(float x, float* s, float* c) {
-    sincosf(x, s, c);
-  }
-};
-
-template <>
-struct Real<double> {
-  static constexpr double kSqrt1_2 = 0.7071067811865476;
-  static __device__ __forceinline__ void sin_cos(double x, double* s, double* c) {
-    sincos(x, s, c);
-  }
-};
+constexpr double kSqrt1_2 = 0.7071067811865476;
 
 // Copy `rows` rows of a row-major (rows, len) matrix into shared memory as
 // [row][rstride], with coalesced loads by the whole block. An odd rstride
 // keeps the per-thread row reads that follow free of bank conflicts.
-template <typename T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
+__device__ __forceinline__ void stage_rows(double* dst, const double* __restrict__ src,
                                            int rows, int len, int rstride) {
   for (int i = threadIdx.x; i < rows * len; i += blockDim.x) {
     const int r = i / len;
@@ -53,41 +34,39 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
 }
 
 // |0...0> in this thread's column.
-template <typename T>
-__device__ __forceinline__ void init_zero_state(T* re, T* im, int stride, int dim) {
+__device__ __forceinline__ void init_zero_state(double* re, double* im, int stride, int dim) {
   for (int k = 0; k < dim; ++k) {
-    re[k * stride] = (k == 0) ? T(1) : T(0);
-    im[k * stride] = T(0);
+    re[k * stride] = (k == 0) ? 1.0 : 0.0;
+    im[k * stride] = 0.0;
   }
 }
 
 // Apply the circuit's G gates to this thread's state. `gates` is the (G, 3)
 // int32 table [kind, qubit, control], read by every thread at the same
 // address; `a_row` is this sample's G angles.
-template <typename T>
-__device__ void apply_gates(T* re, T* im, int stride, const T* a_row,
-                            const int* __restrict__ gates, int G, int n) {
+__device__ inline void apply_gates(double* re, double* im, int stride, const double* a_row,
+                                   const int* __restrict__ gates, int G, int n) {
   const int dim = 1 << n;
   const int half_dim = dim >> 1;
   for (int g = 0; g < G; ++g) {
     const int kind = __ldg(gates + 3 * g);
     const int q = __ldg(gates + 3 * g + 1);
     const int ctl = __ldg(gates + 3 * g + 2);
-    T c = T(1), s = T(0);
-    if (kind != H && kind != CX && kind != CZ) Real<T>::sin_cos(T(0.5) * a_row[g], &s, &c);
+    double c = 1.0, s = 0.0;
+    if (kind != H && kind != CX && kind != CZ) sincos(0.5 * a_row[g], &s, &c);
 
     if (kind == CZ || kind == RZZ) {
       // Diagonal two-qubit gates: one pass over all amplitudes.
       for (int k = 0; k < dim; ++k) {
         const int bq = (k >> q) & 1, bc = (k >> ctl) & 1;
-        T* pr = re + k * stride;
-        T* pi = im + k * stride;
+        double* pr = re + k * stride;
+        double* pi = im + k * stride;
         if (kind == CZ) {
           if (bq & bc) { *pr = -*pr; *pi = -*pi; }
         } else {
           // exp(-i a/2 * sgn), sgn = +1 where the bits agree.
-          const T sg = (bq == bc) ? s : -s;
-          const T r0 = *pr, i0 = *pi;
+          const double sg = (bq == bc) ? s : -s;
+          const double r0 = *pr, i0 = *pi;
           *pr = c * r0 + sg * i0;
           *pi = c * i0 - sg * r0;
         }
@@ -100,11 +79,11 @@ __device__ void apply_gates(T* re, T* im, int stride, const T* a_row,
       const int k0 = ((p >> q) << (q + 1)) | (p & lo);
       const int k1 = k0 | (1 << q);
       if (ctl >= 0 && !((k0 >> ctl) & 1)) continue;  // control bit clear
-      T* pr0 = re + k0 * stride;
-      T* pi0 = im + k0 * stride;
-      T* pr1 = re + k1 * stride;
-      T* pi1 = im + k1 * stride;
-      const T r0 = *pr0, i0 = *pi0, r1 = *pr1, i1 = *pi1;
+      double* pr0 = re + k0 * stride;
+      double* pi0 = im + k0 * stride;
+      double* pr1 = re + k1 * stride;
+      double* pi1 = im + k1 * stride;
+      const double r0 = *pr0, i0 = *pi0, r1 = *pr1, i1 = *pi1;
       switch (kind) {
         case RX: case CRX:  // [[c, -is], [-is, c]]
           *pr0 = c * r0 + s * i1;  *pi0 = c * i0 - s * r1;
@@ -119,8 +98,8 @@ __device__ void apply_gates(T* re, T* im, int stride, const T* a_row,
           *pr1 = c * r1 - s * i1;  *pi1 = c * i1 + s * r1;
           break;
         case H:
-          *pr0 = (r0 + r1) * Real<T>::kSqrt1_2;  *pi0 = (i0 + i1) * Real<T>::kSqrt1_2;
-          *pr1 = (r0 - r1) * Real<T>::kSqrt1_2;  *pi1 = (i0 - i1) * Real<T>::kSqrt1_2;
+          *pr0 = (r0 + r1) * kSqrt1_2;  *pi0 = (i0 + i1) * kSqrt1_2;
+          *pr1 = (r0 - r1) * kSqrt1_2;  *pi1 = (i0 - i1) * kSqrt1_2;
           break;
         case CX:
           *pr0 = r1;  *pi0 = i1;  *pr1 = r0;  *pi1 = i0;
@@ -130,32 +109,17 @@ __device__ void apply_gates(T* re, T* im, int stride, const T* a_row,
   }
 }
 
-template <typename T>
-struct Complex2;
-template <>
-struct Complex2<float> {
-  using type = float2;
-  static __device__ __forceinline__ float2 make(float r, float i) { return make_float2(r, i); }
-};
-template <>
-struct Complex2<double> {
-  using type = double2;
-  static __device__ __forceinline__ double2 make(double r, double i) { return make_double2(r, i); }
-};
-
 // Write the block's `rows` states, held as [amplitude][stride] planes, to
-// rows [0, rows) of a row-major (B, 2^n) interleaved complex tensor at
-// `out`. Consecutive threads write consecutive amplitudes of one row, so the
-// global stores coalesce; with an odd stride their shared-memory reads fall
-// in distinct banks. Call after a __syncthreads().
-template <typename T>
-__device__ __forceinline__ void store_states(typename Complex2<T>::type* out,
-                                             const T* re, const T* im,
+// rows [0, rows) of a row-major (B, 2^n) complex128 tensor at `out`.
+// Consecutive threads write consecutive amplitudes of one row, so the global
+// stores coalesce; with an odd stride their shared-memory reads fall in
+// distinct banks. Call after a __syncthreads().
+__device__ __forceinline__ void store_states(double2* out, const double* re, const double* im,
                                              int stride, int rows, int n) {
   const int dim = 1 << n;
   for (int i = threadIdx.x; i < rows * dim; i += blockDim.x) {
     const int r = i >> n, k = i & (dim - 1);
-    out[i] = Complex2<T>::make(re[k * stride + r], im[k * stride + r]);
+    out[i] = make_double2(re[k * stride + r], im[k * stride + r]);
   }
 }
 

@@ -2,7 +2,10 @@
 
 * ``pauli_features_from_angles`` (K1, ``csrc/pauli_features.cu``) — port of
   ``dqgp_tpu/ops/pallas_circuit.py::make_pallas_pauli_features_fn``: angles
-  (B, G) -> Pauli features (B, 3n) as [X | Y | Z] blocks, float32 or float64.
+  (B, G) -> Pauli features (B, 3n) as [X | Y | Z] blocks, float32 (a
+  sample's state in registers across a warp's lanes, ``csrc/warp_state.cuh``,
+  a gate at a time, then K3's reduction) or float64 (the state in shared
+  memory, ``csrc/statevector.cuh``).
 * ``states_from_angles`` (K2, ``csrc/states.cu``) — port of
   ``make_pallas_states_fn``: angles (B, G) -> states (B, 2^n), complex64
   from float32 angles (a sample's state in registers across a warp's lanes,
@@ -18,10 +21,11 @@
   ``make_pallas_states_fused_fn``: the states through the fused program,
   float32 only; ``warp_program.cuh``'s body, then the write-out.
 
-K3 takes qubit q as bit q of the state's index in registers and lanes; the
-states kernels (K2 float32, K4) put the low qubits on the lanes so that a
-sample's lanes write consecutive amplitudes (``states_bit``). The kernels
-see only those physical bits: the tables built here carry the map.
+K1 (float32) and K3 take qubit q as bit q of the state's index in registers
+and lanes; the states kernels (K2 float32, K4) put the low qubits on the
+lanes so that a sample's lanes write consecutive amplitudes
+(``states_bit``). The kernels see only those physical bits: the tables built
+here carry the map.
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc at first
 use) and adds one to its launch count: ``.launches`` for the float32
@@ -54,16 +58,18 @@ FEATURES_FUSED_SOURCE = "pauli_features_fused.cu"  # K3
 SOURCES = (SOURCE, STATES_SOURCE, FEATURES_FUSED_SOURCE, FUSED_SOURCE)
 MAX_QUBITS = 10
 _SMEM_BUDGET = 200 * 1024  # bytes a block may take (the card allows 227 KB)
-_WARP_THREADS = 256             # the warp kernels' launch bound (two blocks an SM)
-_WARP_SMEM_BUDGET = 112 * 1024  # so that two of their blocks fit an SM's 228 KB
+_WARP_THREADS = 256             # the warp kernels' launch bound
+_WARP_SMEM_PER_SM = 224 * 1024  # what an SM's resident blocks share of its 228 KB
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_K1_ARGS = [_vp, _vp, _vp] + [_i32] * 5 + [_i64, _vp]
+_GATES_ARGS = [_vp, _vp, _vp] + [_i32] * 4 + [_i64, _vp]  # K1 and K2, float32
 _FUSED_ARGS = [_vp] * 6 + [_i32] * 9 + [_i64, _vp]
 _OCCUPANCY_ARGS = [_i32, _i32, _i64]
 _SIGNATURES = {
-    SOURCE: {"dqgp_pauli_features": _K1_ARGS, "dqgp_pauli_features_f64": _K1_ARGS},
-    STATES_SOURCE: {"dqgp_states": [_vp, _vp, _vp] + [_i32] * 4 + [_i64, _vp],
+    SOURCE: {"dqgp_pauli_features": _GATES_ARGS,
+             "dqgp_pauli_features_f64": [_vp, _vp, _vp] + [_i32] * 5 + [_i64, _vp],
+             "dqgp_pauli_features_blocks_per_sm": _OCCUPANCY_ARGS},
+    STATES_SOURCE: {"dqgp_states": _GATES_ARGS,
                     "dqgp_states_f64": [_vp, _vp, _vp] + [_i32] * 6 + [_i64, _vp],
                     "dqgp_states_blocks_per_sm": _OCCUPANCY_ARGS},
     FUSED_SOURCE: {"dqgp_states_fused": _FUSED_ARGS,
@@ -73,6 +79,7 @@ _SIGNATURES = {
 }
 # each warp kernel's (source, launch function, occupancy function)
 _WARP_KERNELS = {
+    "K1": (SOURCE, "dqgp_pauli_features", "dqgp_pauli_features_blocks_per_sm"),
     "K2": (STATES_SOURCE, "dqgp_states", "dqgp_states_blocks_per_sm"),
     "K3": (FEATURES_FUSED_SOURCE, "dqgp_pauli_features_fused",
            "dqgp_pauli_features_fused_blocks_per_sm"),
@@ -147,8 +154,9 @@ def _threads_per_block(smem_bytes) -> int:
 
 
 def launch_config(num_qubits: int, num_gates: int,
-                  real_bytes: int = 4) -> tuple[int, int, int]:
-    """K1's (threads per block, padded angle-row stride, dynamic smem bytes).
+                  real_bytes: int = 8) -> tuple[int, int, int]:
+    """(threads per block, padded angle-row stride, dynamic smem bytes) of
+    K1's shared-memory kernel, the float64 instantiation.
 
     A block holds its threads' states ([amplitude][thread] re and im planes)
     and their angle rows, padded to an odd stride so the per-thread reads hit
@@ -168,9 +176,9 @@ def states_launch_config(num_qubits: int, row_len: int,
     """(threads per block, padded row stride, padded state stride, dynamic
     smem bytes) of K2's shared-memory kernel, the float64 instantiation.
 
-    As K1's, but the [amplitude][thread] planes' stride is padded to an odd
-    word count (threads + 1), so the cooperative store's reads down a column
-    hit distinct banks."""
+    As K1's float64 kernel, but the [amplitude][thread] planes' stride is
+    padded to an odd word count (threads + 1), so the cooperative store's
+    reads down a column hit distinct banks."""
     dim = 1 << num_qubits
     rstride = row_len | 1
 
@@ -226,15 +234,16 @@ def pauli_features_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.
     out = torch.empty((B, 3 * n), dtype=angles.dtype, device=angles.device)
     if B == 0:
         return out
-    f64 = angles.dtype == torch.float64
-    tpb, gstride, smem = launch_config(n, G, angles.element_size())
-    _launch(SOURCE, "dqgp_pauli_features_f64" if f64 else "dqgp_pauli_features",
-            angles.device, angles.data_ptr(),
-            _gate_table(circuit, angles.device).data_ptr(), out.data_ptr(),
-            B, G, n, tpb, gstride, smem)
-    if f64:
+    gates = _gate_table(circuit, angles.device)  # qubit q on bit q
+    if angles.dtype == torch.float64:
+        tpb, gstride, smem = launch_config(n, G, angles.element_size())
+        _launch(SOURCE, "dqgp_pauli_features_f64", angles.device, angles.data_ptr(),
+                gates.data_ptr(), out.data_ptr(), B, G, n, tpb, gstride, smem)
         pauli_features_from_angles.launches_f64 += 1
     else:
+        geo = features_geometry(circuit)
+        _launch(SOURCE, "dqgp_pauli_features", angles.device, angles.data_ptr(),
+                gates.data_ptr(), out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
         pauli_features_from_angles.launches += 1
     return out
 
@@ -350,7 +359,7 @@ def _fused_device_tables(circuit: Circuit, device: torch.device, states_layout: 
 
 
 class WarpGeometry(NamedTuple):
-    """Launch geometry of a warp kernel (K2 float32, K3, K4)."""
+    """Launch geometry of a warp kernel (K1 and K2 float32, K3, K4)."""
 
     threads: int          # threads a block
     lanes: int            # lanes a sample's state spreads over
@@ -360,23 +369,26 @@ class WarpGeometry(NamedTuple):
 
 
 def _warp_geometry(num_qubits: int, table_words: int, c_bytes: int,
-                   row_words: int, what: str) -> WarpGeometry:
+                   row_words: int, what: str, blocks_per_sm: int = 2,
+                   threads: int = _WARP_THREADS) -> WarpGeometry:
     """A sample's state lives in registers over max(1, 2^(n-5)) lanes, so a
     warp works on 32 / lanes samples and no state is in shared memory. A
     block holds its int32 tables with the batch loop's two words (padded to
     16 bytes), C and, per warp, one word and its samples' staged rows at an
-    odd stride. 256 threads, halved until two blocks fit an SM."""
+    odd stride. ``threads`` a block, halved until ``blocks_per_sm`` blocks
+    (the kernel's launch bound) fit an SM."""
     lanes = 1 << max(0, num_qubits - 5)
     per_warp = 32 // lanes
     fixed = 4 * ((table_words + 2 + 3) & ~3) + c_bytes
     warp_bytes = 4 * (per_warp * (row_words | 1) + 1)
-    tpb = _WARP_THREADS
-    while tpb > 32 and fixed + tpb // 32 * warp_bytes > _WARP_SMEM_BUDGET:
+    budget = _WARP_SMEM_PER_SM // blocks_per_sm
+    tpb = threads
+    while tpb > 32 and fixed + tpb // 32 * warp_bytes > budget:
         tpb //= 2
     smem = fixed + tpb // 32 * warp_bytes
-    if smem > _WARP_SMEM_BUDGET:
+    if smem > budget:
         raise ValueError(f"{what} for {num_qubits} qubits ({fixed} B of tables, "
-                         f"{warp_bytes} B a warp) exceed the {_WARP_SMEM_BUDGET} B "
+                         f"{warp_bytes} B a warp) exceed the {budget} B "
                          f"a block may take")
     return WarpGeometry(tpb, lanes, tpb // 32 * per_warp, smem, c_bytes)
 
@@ -404,9 +416,30 @@ def states_geometry(circuit: Circuit) -> WarpGeometry:
     return _warp_geometry(circuit.num_qubits, 3 * G, 0, G, "K2's gate table and rows")
 
 
+def features_min_blocks(num_qubits: int) -> int:
+    """Resident blocks an SM that K1's float32 instantiation for
+    ``num_qubits`` asks of the compiler (csrc/warp_state.cuh's
+    GateFeaturesMinBlocks): four where a lane's whole state is at most 32
+    registers, two above."""
+    return 4 if num_qubits <= 4 else 2
+
+
+@functools.lru_cache(maxsize=128)
+def features_geometry(circuit: Circuit) -> WarpGeometry:
+    """K1's float32 launch geometry for ``circuit`` (csrc/pauli_features.cu):
+    K2's table and rows, sized so that the blocks an SM the instantiation
+    asks for fit its shared memory. Up to 5 qubits, where a lane holds a
+    sample and a batch is few warps (the north-star step's 84,240 rows are
+    2,633), the blocks are 128 threads: they spread evenly over the SMs
+    where 256-thread blocks leave some SMs with half as much again."""
+    n, G = circuit.num_qubits, circuit.num_gates
+    return _warp_geometry(n, 3 * G, 0, G, "K1's gate table and rows",
+                          features_min_blocks(n), _WARP_THREADS // 2 if n <= 5 else _WARP_THREADS)
+
+
 def blocks_per_sm(kernel: str, geo: WarpGeometry, num_qubits: int) -> int:
-    """Resident blocks an SM holds of warp kernel ``kernel`` ("K2", "K3" or
-    "K4") at this geometry, as the CUDA occupancy calculator reckons it from
+    """Resident blocks an SM holds of warp kernel ``kernel`` ("K1", "K2",
+    "K3" or "K4") at this geometry, as the CUDA occupancy calculator reckons it from
     the build's registers and ``geo``'s shared memory (card only)."""
     source, _, fn = _WARP_KERNELS[kernel]
     return getattr(_library(source), fn)(num_qubits, geo.threads, geo.smem_bytes)

@@ -36,8 +36,8 @@ import chip_smoke as cs  # noqa: E402
 CELLS = ("northstar", "fidelity", "config7")
 GROUPS = (  # first match wins
     ("hand kernels (K1-K4)",
-     r"pauli_features_kernel|warp_features_kernel|states_kernel|warp_states_kernel"
-     r"|warp_states_fused_kernel"),
+     r"warp_pauli_features_kernel|pauli_features_kernel_f64|warp_states_kernel"
+     r"|states_kernel_f64|warp_features_kernel|warp_states_fused_kernel"),
     ("eigh (condition numbers)", r"syev|sytrd|stedc|ormtr|steqr|sterf|latrd"),
     ("triangular solves", r"trsm|trsv|trtri"),
     ("Cholesky", r"potrf|potrs"),

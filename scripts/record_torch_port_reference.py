@@ -2,17 +2,22 @@
 """Record the JAX float64 reference that the PyTorch port is held to.
 
     JAX_PLATFORMS=cpu python scripts/record_torch_port_reference.py
+    JAX_PLATFORMS=cpu python scripts/record_torch_port_reference.py \
+        --iters 25 --out tests/fixtures/torch_port_northstar_25.json
 
 Runs ``dqgp_tpu.driver.train`` on the CPU on the north-star problem that
 ``chip_smoke.py`` builds (bench.py:52-77 plus 200 held-out rows), for
-``chip_smoke.ITERS`` ADMM iterations with per-iteration 5-fold CV, then
-``predict_quantum_gp`` + ``evaluate_predictions`` on the held-out rows, and
-writes ``tests/fixtures/torch_port_northstar.json``. The GP side is direct
-float64 (the "auto" resolution on CPU/GPU); features are the JAX XLA engine's
-float32. chip_smoke.py imports no JAX, so on the GPU this file is its
-reference.
+``--iters`` ADMM iterations (default ``chip_smoke.ITERS``) with per-iteration
+5-fold CV, then ``predict_quantum_gp`` + ``evaluate_predictions`` on the
+held-out rows, and writes ``--out`` (default
+``tests/fixtures/torch_port_northstar.json``; the 25-iteration run of the
+bench gate, bench.py:59-60, is ``chip_smoke.FIXTURE_25``). The GP side is
+direct float64 (the "auto" resolution on CPU/GPU); features are the JAX XLA
+engine's float32. chip_smoke.py imports no JAX, so on the GPU these files are
+its reference.
 """
 
+import argparse
 import json
 import os
 import sys
@@ -34,14 +39,14 @@ from dqgp_tpu.models.gp.posterior import predict_quantum_gp  # noqa: E402
 from dqgp_tpu.models.kernels import QuantumKernelSpec  # noqa: E402
 
 
-def record() -> dict:
+def record(iters: int) -> dict:
     X, Y, X_test, Y_test = cs.make_problem()
     spec = QuantumKernelSpec(
         circuit=build_circuit("chebyshev", cs.NUM_QUBITS, cs.NUM_FEATURES,
                               cs.NUM_LAYERS),
         kernel_type="projected", outer_kernel="matern")
     splits = split_data_numpy(X, Y, cs.N_AGENTS, "regional")
-    cfg = driver.TrainConfig(max_iter=cs.ITERS, verbose=False)
+    cfg = driver.TrainConfig(max_iter=iters, verbose=False)
     res = driver.train(spec, splits, X, Y, cfg)
     mean, var = predict_quantum_gp(spec, jnp.asarray(X), jnp.asarray(Y),
                                    jnp.asarray(X_test), jnp.asarray(res.z),
@@ -75,8 +80,12 @@ def record() -> dict:
 
 
 if __name__ == "__main__":
-    out = os.path.join(REPO, "tests", "fixtures", "torch_port_northstar.json")
-    data = record()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=cs.ITERS, help="ADMM iterations")
+    ap.add_argument("--out", default=cs.FIXTURE, help="the fixture file to write")
+    args = ap.parse_args()
+    out = os.path.abspath(args.out)
+    data = record(args.iters)
     with open(out, "w") as f:
         json.dump(data, f, indent=1)
         f.write("\n")

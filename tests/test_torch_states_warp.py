@@ -1,15 +1,18 @@
-"""The register-across-a-warp states kernels (K2 float32, K4) as far as the
-CPU reaches them: their launch geometry, the tables that carry the
+"""The register-across-a-warp kernels (K1 float32, K2 float32, K4) as far as
+the CPU reaches them: their launch geometry, the tables that carry the
 qubit-to-bit map, the input guards, and a plain numpy model of the
 lane/register split that applies every gate kind and every fused op through
 the same case split as the device bodies of csrc/warp_state.cuh (a register
 bit inside the lane, a lane bit with the partner at lane ^ m, a control as a
-register mask or a lane predicate, CZ/RZZ across the two domains) and writes
-the state out as store_state does.
+register mask or a lane predicate, CZ/RZZ across the two domains), writes
+the state out as store_state does (K2, K4) and reduces it to the Pauli
+features as reduce_features does (K1).
 
 The model runs in complex128 and is held to the plain statevector engine at
-1e-12 (the split is exact; the kernels' own float32 bars, 2e-6 and 3e-6,
-are held on the card by chip_smoke.py phase 6 and tests/test_torch_cuda.py).
+1e-12 (the split is exact; the kernels' own float32 bars, 5e-6, 2e-6 and
+3e-6, are held on the card by chip_smoke.py phases 3 and 6 and
+tests/test_torch_cuda.py). tests/test_torch_pauli_features_warp.py holds
+K1's model to the JAX package's XLA engine and its Pallas kernel as well.
 """
 
 from unittest import mock
@@ -27,6 +30,7 @@ from dqgp_tpu_torch.ops import statevector as tsv
 
 MODEL_ATOL = 1e-12
 MODEL_QUBITS = (3, 5, 6, 7, 10)
+K1_MODEL_QUBITS = (1, 3, 4, 5, 6, 8, 10)
 
 
 def _circuit(enc, n, layers=2):
@@ -145,6 +149,53 @@ class LaneRegisterState:
         """The (rows, 2^n) state under K3's map: amplitude l * A + r."""
         return self.s.reshape(self.s.shape[0], -1).copy()
 
+    def _group_sum(self, v):
+        """(rows, L) per-lane partial sums -> every lane's total, by the
+        xor butterfly of group_sum."""
+        m = 1
+        while m < self.L:
+            v = v + v[:, self.lig ^ m]
+            m <<= 1
+        return v
+
+    def features(self):
+        """The (rows, 3n) [X | Y | Z] output as reduce_features writes it
+        under the feature kernels' map (qubit q on bit q): a register qubit
+        pairs amplitudes inside the lane, a lane qubit with the partner lane
+        (only the lane whose bit is clear adds the pair to X and Y), the
+        lanes' sums meet in a butterfly, and lane f mod L writes feature f.
+        Every feature must be written exactly once."""
+        n, rows = self.n, self.s.shape[0]
+        out = np.full((rows, 3 * n), np.nan)
+        written = np.zeros(3 * n, int)
+        for q in range(n):
+            x, y, z = (np.zeros((rows, self.L)) for _ in range(3))
+            if q < self.reg_bits:
+                for p in range(self.A // 2):
+                    k0 = ((p >> q) << (q + 1)) | (p & ((1 << q) - 1))
+                    s0, s1 = self.s[:, :, k0], self.s[:, :, k0 | (1 << q)]
+                    x += s0.real * s1.real + s0.imag * s1.imag
+                    y += s0.real * s1.imag - s0.imag * s1.real
+                    z += np.abs(s0) ** 2 - np.abs(s1) ** 2
+            else:
+                m = 1 << (q - 5)
+                mine, partner = self.s, self.s[:, self.lig ^ m, :]
+                hi = ((self.lig & m) != 0)[None, :]
+                w = np.where(hi, 0.0, 1.0)  # this lane holds s0 where its bit is clear
+                x = w * (mine.real * partner.real + mine.imag * partner.imag).sum(-1)
+                y = w * (mine.real * partner.imag - mine.imag * partner.real).sum(-1)
+                prob = (np.abs(mine) ** 2).sum(-1)
+                z = np.where(hi, -prob, prob)
+            totals = ((q, 2.0 * self._group_sum(x)), (n + q, 2.0 * self._group_sum(y)),
+                      (2 * n + q, self._group_sum(z)))
+            for f, total in totals:
+                for lig in range(self.L):
+                    if f % self.L == lig:
+                        out[:, f] = total[:, lig]
+                        written[f] += 1
+        assert written.tolist() == [1] * (3 * n)
+        return out
+
 
 def _gate_2x2(kind, half):
     c, s = np.cos(half), np.sin(half)
@@ -160,11 +211,11 @@ def _gate_2x2(kind, half):
     return np.stack([np.stack([e + 0j for e in row], -1) for row in u], -2)
 
 
-def model_states(circuit, angles):
-    """K2's float32 kernel in the model: the remapped gate table, a gate at a
-    time through apply_gate's case split, then the write-out."""
+def _model_gate_sequence(circuit, angles, states_layout):
+    """run_gate_batch in the model: the gate table under either bit map, a
+    gate at a time through apply_gate's case split."""
     st = LaneRegisterState(circuit.num_qubits, angles.shape[0])
-    for j, (kind, q, ctl) in enumerate(K.gate_table(circuit, states_layout=True).tolist()):
+    for j, (kind, q, ctl) in enumerate(K.gate_table(circuit, states_layout).tolist()):
         half = 0.5 * angles[:, j]
         if kind == tc.CX:
             st.perm(q, ctl)
@@ -172,7 +223,19 @@ def model_states(circuit, angles):
             st.diag2(q, ctl, kind == tc.CZ, half)
         else:
             st.su2(_gate_2x2(kind, half), q, ctl)
-    return st.stored()
+    return st
+
+
+def model_states(circuit, angles):
+    """K2's float32 kernel in the model: the remapped gate table, a gate at a
+    time, then the write-out."""
+    return _model_gate_sequence(circuit, angles, True).stored()
+
+
+def model_features(circuit, angles):
+    """K1's float32 kernel in the model: the gate table with qubit q on bit
+    q, a gate at a time, then the reduction."""
+    return _model_gate_sequence(circuit, angles, False).features()
 
 
 def model_fused(circuit, angles, states_layout):
@@ -233,6 +296,35 @@ def test_lane_register_model_runs_the_fused_program(enc, n, states_layout):
     c = _circuit(enc, n)
     a = _random_angles(c, 3, seed=20 + n)
     np.testing.assert_allclose(model_fused(c, a, states_layout), _reference(c, a),
+                               rtol=0, atol=MODEL_ATOL)
+
+
+def _features_reference(circuit, angles):
+    return K.pauli_features_reference(circuit, torch.tensor(angles)).numpy()
+
+
+@pytest.mark.parametrize("n", K1_MODEL_QUBITS)
+@pytest.mark.parametrize("enc", ENCODING_TYPES)
+def test_lane_register_model_runs_k1(enc, n):
+    """The unfused gate sequence under the identity bit map, then the model
+    of reduce_features, gives the plain engine's Pauli features."""
+    c = _circuit(enc, n)
+    a = _random_angles(c, 3, seed=30 + n)
+    np.testing.assert_allclose(model_features(c, a), _features_reference(c, a),
+                               rtol=0, atol=MODEL_ATOL)
+
+
+@pytest.mark.parametrize("n", MODEL_QUBITS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lane_register_model_k1_every_gate_kind(n, seed):
+    """All ten gate kinds through K1's model, targets and controls (CRX, CRY,
+    CRZ, CZ, RZZ, CX) on seeded qubits: at n > 5 on register bits and on
+    lane bits."""
+    c = _every_kind_circuit(n, seed)
+    if n > 5:
+        assert {g.control >= 5 for g in c.gates if g.control >= 0} == {True, False}
+    a = _random_angles(c, 2, seed=40 + n)
+    np.testing.assert_allclose(model_features(c, a), _features_reference(c, a),
                                rtol=0, atol=MODEL_ATOL)
 
 
@@ -323,6 +415,37 @@ def test_states_warp_geometry(n):
 
 
 @pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+def test_features_warp_geometry(n):
+    """K1's float32 geometry: K2's layout of shared memory (the (G, 3) gate
+    table with qubit q on bit q, each warp's staged angle rows), sized so
+    that the blocks an SM its instantiation asks for (four up to 4 qubits,
+    two above) fit the SM."""
+    for G_layers in (1, 3):
+        c = _circuit("chebyshev", n, G_layers)
+        G = c.num_gates
+        geo = K.features_geometry(c)
+        lanes = max(1, 2 ** (n - 5))
+        blocks = K.features_min_blocks(n)
+        assert blocks == (4 if n <= 4 else 2)
+        assert geo.lanes == lanes and geo.samples == geo.threads // lanes and geo.c_bytes == 0
+        assert geo.samples // (geo.threads // 32) == 32 // lanes  # samples a warp
+        table = 4 * ((3 * G + 2 + 3) // 4 * 4)
+        per_warp = 4 * ((32 // lanes) * (G | 1) + 1)
+        assert geo.smem_bytes == table + geo.threads // 32 * per_warp
+        assert geo.threads == (128 if n <= 5 else 256)
+        # each resident block also takes 1 KB of the SM's 228 KB for the system
+        assert blocks * (geo.smem_bytes + 1024) <= 228 * 1024
+    north = K.features_geometry(_circuit("chebyshev", 4, 3))  # the north star's circuit
+    assert (north.threads, north.lanes, north.samples) == (128, 1, 128)
+    assert north.smem_bytes == 4 * 124 + 4 * 4 * (32 * 41 + 1)
+    wide = K.features_geometry(_circuit("chebyshev", 3, 40))  # long rows: fewer warps a block
+    assert wide.threads < 128 and 4 * (wide.smem_bytes + 1024) <= 228 * 1024
+    # the gate table K1 gets is the circuit's own: qubit q on bit q
+    c10 = _circuit("chebyshev", 10)
+    assert K.gate_table(c10).tolist() == [[g.kind, g.qubit, g.control] for g in c10.gates]
+
+
+@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
 def test_fused_states_geometry(n):
     """K4 runs K3's body, so its geometry is K3's whatever the bit map: the
     tables, C and each warp's staged rows (angles, phase-run members and,
@@ -348,10 +471,11 @@ def test_fused_states_geometry(n):
 
 
 @pytest.mark.parametrize("wrapper,dtypes", [
+    ("pauli_features_from_angles", "float32 or torch.float64"),
     ("states_from_angles", "float32 or torch.float64"),
     ("states_from_angles_fused", "float32")])
 def test_states_launch_guards(wrapper, dtypes):
-    """K2 and K4 take contiguous (B, G) angles of their dtypes: anything
+    """K1, K2 and K4 take contiguous (B, G) angles of their dtypes: anything
     else raises before any launch (as it would on the card)."""
     c = _circuit("chebyshev", 3, 1)
     fn = getattr(K, wrapper)
@@ -418,6 +542,41 @@ def test_card_path_of_k2_by_dtype(n):
     assert list(f32[6:]) == [5, c.num_gates, n, geo.threads, geo.smem_bytes]
     assert f64[1] == "dqgp_states_f64" and f64[4] == K._gate_table(c, a64.device).data_ptr()
     assert list(f64[6:]) == [5, c.num_gates, n, *K.states_launch_config(n, c.num_gates, 8)]
+
+
+@pytest.mark.parametrize("n", [3, 4, 6, 10])
+def test_card_path_of_k1_by_dtype(n):
+    """float32 angles take the warp kernel, float64 angles the shared-memory
+    kernel, both with the gate table that has qubit q on bit q; each ticks
+    its own counter."""
+    c = _circuit("chebyshev", n, 2)
+    calls = []
+    with mock.patch.object(K, "_is_cuda", lambda t: True), \
+            mock.patch.object(K, "_launch", lambda *args: calls.append(args)):
+        try:
+            a32, a64 = torch.zeros((5, c.num_gates)), torch.zeros((5, c.num_gates),
+                                                                  dtype=torch.float64)
+            out32 = K.pauli_features_from_angles(c, a32)
+            out64 = K.pauli_features_from_angles(c, a64)
+            assert K.launch_counts() == {**dict.fromkeys(K.launch_counts(), 0),
+                                         "K1": 1, "K1_f64": 1}
+            assert K.pauli_features_from_angles(c, a32[:0]).shape == (0, 3 * n)
+            assert K.launch_counts()["K1"] == 1  # an empty batch launches nothing
+        finally:
+            K.reset_launch_counts()
+    assert (out32.shape, out32.dtype) == ((5, 3 * n), torch.float32)
+    assert (out64.shape, out64.dtype) == ((5, 3 * n), torch.float64)
+    f32, f64 = calls
+    geo = K.features_geometry(c)
+    table = K._gate_table(c, a32.device)
+    assert table.tolist() == [[g.kind, g.qubit, g.control] for g in c.gates]
+    assert f32[:2] == (K.SOURCE, "dqgp_pauli_features")
+    assert f32[3:6] == (a32.data_ptr(), table.data_ptr(), out32.data_ptr())
+    assert list(f32[6:]) == [5, c.num_gates, n, geo.threads, geo.smem_bytes]
+    assert f64[:2] == (K.SOURCE, "dqgp_pauli_features_f64") and f64[4] == table.data_ptr()
+    assert list(f64[6:]) == [5, c.num_gates, n, *K.launch_config(n, c.num_gates, 8)]
+    assert K._WARP_KERNELS["K1"] == (K.SOURCE, "dqgp_pauli_features",
+                                     "dqgp_pauli_features_blocks_per_sm")
 
 
 def test_circuit_keys_the_caches_cheaply():
