@@ -7,8 +7,9 @@ Phases, one line each; any failure raises and exits non-zero:
 
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds the Pauli-feature (K1), states (K2), fused
-             Pauli-feature (K3) and fused states (K4) kernels for sm_90a,
-             one nvcc each, all started together, with ptxas's register and
+             Pauli-feature (K3) and fused states (K4) kernels and the
+             adjoint kernel (the backward of K1 and K2) for sm_90a, one nvcc
+             each, all started together, with ptxas's register and
              spill report; for each of the ten float32 instantiations (1-10
              qubits) of K1, K2, K3 and K4 its registers, stack frame and
              spills, which must be 0 and 0; K1's geometry and resident blocks
@@ -26,9 +27,11 @@ Phases, one line each; any failure raises and exits non-zero:
              per-iteration 5-fold CV through ``train(..., device=cuda)``,
              then ``predict_quantum_gp`` + ``evaluate_predictions`` on 200
              held-out rows. K1 must have run in every step, CV pass and
-             predict; the z trajectory must stay within 5e-3 and every CV and
-             test NLPD within 0.05 of the JAX float64 reference
-             (tests/fixtures/torch_port_northstar.json);
+             predict, and K1's float64 instantiation in the condition-number
+             backfill (``cond_mode="auto"`` is "host" on the card: one launch
+             an agent and 16 iterations); the z trajectory must stay within
+             5e-3 and every CV and test NLPD within 0.05 of the JAX float64
+             reference (tests/fixtures/torch_port_northstar.json);
 4b. gate   — the same problem trained for the 25 iterations of the bench
              gate (bench.py:59-60) against the JAX float64 run of 25
              (tests/fixtures/torch_port_northstar_25.json): the largest z and
@@ -39,7 +42,9 @@ Phases, one line each; any failure raises and exits non-zero:
              iterations: two float32 feature engines part after that (the
              JAX package's own raw float32 leaves its float64 trajectory
              within ~10 iterations, bench.py:512-519);
-5. times   — CUDA-event times of one ADMM iteration (step + CV), of K1 vs
+5. times   — CUDA-event times of one ADMM iteration (step + CV, as train()
+             runs it on the card, and with the condition numbers in the step
+             as cond_mode="device" has them), of K1 vs
              its plain version at B=84240, G=40, n=4 (a call, and from the
              profiler the kernel alone, with its bound and share of it; the
              kernel alone at the 1000 CV rows too), and of the projected
@@ -58,13 +63,15 @@ Phases, one line each; any failure raises and exits non-zero:
              instantiation; Y within 1e-6 of the JAX float64 dataset), the
              CLI's train/test split and regional partition over 4 agents,
              5 ADMM iterations with 5-fold CV, predict and evaluate. K2 must
-             have run in every step, CV pass and predict; z within 5e-3,
+             have run in every step, CV pass and predict, its float64
+             instantiation in the dataset and the backfill; z within 5e-3,
              every agent NLL within rtol 1e-4, every CV-NLPD and the test
              NLPD within max(0.05, 2 |JAX f32 - JAX f64|) of the JAX float32
              values (tests/fixtures/torch_port_fidelity.json);
 8. fused   — the same training for 2 iterations with fusion on: K4 runs in
              K2's place, under the same bars;
-9. times   — one fidelity ADMM iteration (step + CV), K2 vs plain and K4 vs
+9. times   — one fidelity ADMM iteration (step + CV, without and with the
+             condition numbers in the step), K2 vs plain and K4 vs
              plain fused (both from angles) at B=22500, G=23, n=6, with each
              one's bound and share of it; K2 vs K4 at 4, 6, 8 and 10 qubits
              (kyriienko, 1 layer) at the same row count, in turns, with
@@ -110,6 +117,39 @@ Phases, one line each; any failure raises and exits non-zero:
              predictor's set-up (timed in 11b: features, pivoted Cholesky,
              the alpha solve) and 512-row predict, and the float64
              gram_matvec at N=49999 with 1 and 512 right-hand sides.
+
+13. cond   — ``cond_mode`` "device", "host" and off (``compute_cond=False``):
+             the north star for 5 iterations and config #5 for 2, each mode
+             on the same z trajectory (cond is reporting only); the port's
+             host backfill (float64 Grams from complex128 states through
+             K1's and K2's float64 kernels) at the JAX fixture's z rows
+             (tests/fixtures/torch_port_driver_modes.json) within rtol 1e-6
+             where cond < 1e8 and in the reference's 1e12/1e15 bucket above;
+             the backfill's time, the device-mode floors beside the host
+             values, and the float64 kernels against their plain versions at
+             the backfill's shapes;
+14. chained — ``chain_iters``: the north star for 25 iterations in chunks
+             of 5 and config #5 for 5 in one chunk, each a CUDA-graph replay
+             of the chunk's steps and CV passes, against the same runs one
+             iteration at a time: z, theta, psi identical, agent NLLs and CV
+             scores within rtol 1e-12, the same stop; a stop inside a chunk
+             (7 iterations in chunks of 3). K1 (north star) and K2 (config
+             #5) must run inside the graph: their launches in a chained run
+             are measured by the profiler, whose device record counts a
+             graph's kernels at every replay (the wrappers count Python
+             calls: the capture once, no replay), and must be the warm-up's
+             2 plus 2k a replay; ms an iteration of both modes by CUDA
+             events, kernels an iteration and the graph pool's peak;
+15. autodiff — (a) the adjoint kernel (``csrc/circuit_vjp.cu``, K1's and
+             K2's backward) against its plain version (torch.autograd
+             through their plain versions): 8 families x every qubit count
+             1..10 x batch {1, 130} x features and states, plus the autodiff
+             step's shape, within 5e-5 of max(1, max |g|), and its times;
+             (b) the north star for 3 iterations with grad_method="autodiff"
+             (K1 forward, the adjoint kernel backward, in every step; K1 in
+             the CV passes) against the JAX fixture's run: z within 5e-3,
+             CV-NLPD within 0.05, iteration 1's gradient within 1e-3 of its
+             largest component of JAX's.
 
 The last two lines are a JSON record of the kernels (each with its bound:
 the larger of its bytes over the card's memory rate and its operations over
@@ -208,6 +248,22 @@ FP32_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 34e12   # outside the tensor cores, which these kernels do not use
 CONFIG7_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_config7.json")
 
+# The driver's modes (phases 13-15) on the north star and config #5, held to
+# tests/fixtures/torch_port_driver_modes.json
+# (scripts/record_torch_port_driver_modes.py).
+DRIVER_MODES_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_driver_modes.json")
+COND_ITERS, COND_FID_ITERS = 5, 2    # phase 13: cond_mode device / host / off
+COND_RTOL = 1e-6                     # float64 Grams from complex128 states on both sides
+COND_EXACT_BELOW = 1e8               # above it, the reference's bucket must agree
+CHAIN_K = 5                          # phase 14: iterations a CUDA-graph replay
+CHAIN_FID_ITERS = 5
+CHAIN_STOP_ITERS, CHAIN_STOP_K = 7, 3  # a stop inside the third chunk
+CHAIN_LONG_ITERS = 100               # the capture's one-time cost against a longer run
+AUTODIFF_ITERS = 3                   # phase 15
+AUTODIFF_GRAD_TOL = 1e-3             # of the largest component: float32 features on both
+                                     # sides, whose last ulps the NLL solve amplifies
+VJP_TOL = 5e-5                       # float32 adjoint vs plain autograd, of max(1, max |g|)
+
 
 def array_digest(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a, np.float64).tobytes()).hexdigest()
@@ -229,6 +285,12 @@ def problem_digest(X, Y, X_test, Y_test) -> str:
     for a in (X, Y, X_test, Y_test):
         h.update(np.ascontiguousarray(a, np.float64).tobytes())
     return h.hexdigest()
+
+
+def backfill_launches(iters: int, agents: int) -> int:
+    """Float64 feature launches of the host condition-number backfill
+    (``driver.host_condition_numbers``): one an agent and 16-row chunk."""
+    return agents * -(-iters // 16)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -376,8 +438,7 @@ def config7_problem(n_samples: int, n_agents: int):
 
 def config7_train_config(iters: int, **kw):
     """The driver settings of config #7's run (examples/scale_out_training.py:
-    89,96 sets compute_cond=False; the host condition numbers are not
-    ported)."""
+    89,96 sets compute_cond=False)."""
     from dqgp_tpu_torch.driver import TrainConfig
 
     return TrainConfig(max_iter=iters, seed=C7_SEED, grad_method="streamed",
@@ -615,8 +676,11 @@ def northstar_gate(dev) -> dict:
     gate_s = time.time() - t0
     counts = K.launch_counts()
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
-    check(counts["K1"] == 2 * GATE_ITERS + 2 + rescores and sum(counts.values()) == counts["K1"],
-          f"gate launches {counts}: want K1 = 2*{GATE_ITERS} + 2 + {rescores} and no other kernel")
+    f64 = backfill_launches(GATE_ITERS, N_AGENTS)
+    check(counts["K1"] == 2 * GATE_ITERS + 2 + rescores and counts["K1_f64"] == f64
+          and sum(counts.values()) == counts["K1"] + f64,
+          f"gate launches {counts}: want K1 = 2*{GATE_ITERS} + 2 + {rescores}, K1_f64 = {f64} "
+          f"(the condition-number backfill) and no other kernel")
     check(res.iterations == GATE_ITERS and res.converged_by == ref["converged_by"],
           f"gate run stopped {res.converged_by}@{res.iterations}")
     z = np.array([h["consensus_params"] for h in res.cv_history])
@@ -631,7 +695,8 @@ def northstar_gate(dev) -> dict:
     torus_dev = np.minimum(wrapped, M.PERIOD - wrapped).max(axis=1)
     nlpd_dev = abs(metrics["nlpd"] - ref["test_metrics"]["nlpd"])
     print(f"phase 4b north-star gate: {GATE_ITERS} ADMM iterations + predict in {gate_s:.2f} s; "
-          f"K1 launches {counts['K1']} (= 2*{GATE_ITERS} + 2 + {rescores}); largest deviation "
+          f"K1 launches {counts['K1']} (= 2*{GATE_ITERS} + 2 + {rescores}), K1_f64 {f64} (the "
+          f"condition-number backfill); largest deviation "
           f"from the JAX float64 run up to iteration "
           + ", ".join(f"{m}: z {z_dev[:m].max():.1e} (on the torus {torus_dev[:m].max():.1e}) "
                       f"/ CV-NLPD {cv_dev[:m].max():.1e}" for m in GATE_MARKS)
@@ -1157,6 +1222,448 @@ def config7_phases(dev, smi: str, rand_angles) -> dict:
             "max_abs_err_vs_unfused": worst_unfused, "step_ms": step_ms}
 
 
+def runs_identical(a, b, what: str):
+    """Hold run ``b`` to run ``a``: the same stop, z, theta and psi (and the
+    z trajectory) identical, agent NLLs and CV scores within rtol 1e-12.
+    Returns (worst NLL rel dev, worst CV rel dev)."""
+    check((b.iterations, b.converged_by) == (a.iterations, a.converged_by),
+          f"{what}: stopped {b.converged_by}@{b.iterations} vs {a.converged_by}@{a.iterations}")
+    for f in ("z", "theta", "psi"):
+        check(np.array_equal(getattr(b, f), getattr(a, f)), f"{what}: {f} differs")
+    za = np.array([h["consensus_params"] for h in a.cv_history])
+    zb = np.array([h["consensus_params"] for h in b.cv_history])
+    check(np.array_equal(za, zb), f"{what}: the z trajectories differ")
+    na = np.array([h["agent_losses"] for h in a.nll_history])
+    nb = np.array([h["agent_losses"] for h in b.nll_history])
+    ca = np.array([h["consensus_cv_score"] for h in a.cv_history])
+    cb = np.array([h["consensus_cv_score"] for h in b.cv_history])
+    nll_dev = float((np.abs(nb - na) / np.abs(na)).max())
+    cv_dev = float((np.abs(cb - ca) / np.abs(ca)).max())
+    check(nll_dev <= 1e-12 and cv_dev <= 1e-12,
+          f"{what}: agent NLLs / CV scores deviate {nll_dev:.2e} / {cv_dev:.2e} > 1e-12")
+    return nll_dev, cv_dev
+
+
+def cond_bucket(c: float) -> str:
+    """The reference's buckets (main.py:2557-2643)."""
+    return "Good" if c < 1e12 else ("Moderate" if c < 1e15 else "Poor")
+
+
+def hold_host_cond(got, want, what: str) -> float:
+    """The port's float64 backfill against the JAX package's: rtol
+    COND_RTOL where cond < COND_EXACT_BELOW, the same bucket above; returns
+    the worst relative deviation of the values below 1e12."""
+    got, want = np.asarray(got), np.asarray(want)
+    # a Gram singular to float64 (config #5's fidelity Grams: ~43 nonzero
+    # eigenvalues of 225) may read inf, as max|w| / tiny overflows: "Poor"
+    check(got.shape == want.shape and not bool(np.isnan(got).any()),
+          f"{what}: host condition numbers {got.shape}, NaN or misshapen")
+    rel = np.abs(got - want) / want
+    exact = np.where(want < COND_EXACT_BELOW, rel, 0.0)
+    check(bool(np.all(exact <= COND_RTOL)),
+          f"{what}: host condition numbers deviate {exact.max():.2e} > {COND_RTOL}")
+    check(all(cond_bucket(g) == cond_bucket(w) for g, w in zip(got.ravel(), want.ravel())),
+          f"{what}: host condition numbers {got.tolist()} not in JAX's buckets {want.tolist()}")
+    finite = want < 1e12
+    return float(rel[finite].max()) if finite.any() else float("nan")
+
+
+def northstar_splits():
+    from dqgp_tpu_torch.data import split_data_numpy
+
+    X, Y, X_test, Y_test = make_problem()
+    return X, Y, X_test, Y_test, split_data_numpy(X, Y, N_AGENTS, "regional")
+
+
+def cond_phase(dev, smi: str, rand_angles, fid) -> dict:
+    """Phase 13: cond_mode device / host / off on the north star and config
+    #5 (``fid``: phase 7's spec, splits and training rows), the backfill at
+    the JAX fixture's z rows, and the float64 kernels at the backfill's
+    shapes. Returns the float64 kernels' backfill times for the record."""
+    import torch
+
+    from dqgp_tpu_torch.driver import TrainConfig, host_condition_numbers, train
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    with open(DRIVER_MODES_FIXTURE) as f:
+        ref = json.load(f)["host_cond"]
+    X, Y, X_test, Y_test, splits = northstar_splits()
+    check(problem_digest(X, Y, X_test, Y_test) == ref["northstar"]["problem_sha256"],
+          "north-star data differ from the driver-modes fixture's")
+    fspec, fsplits, fX, fX_tr, fY_tr = fid
+    check(array_digest(fX) == ref["fidelity"]["x_sha256"], "config #5 X differs from the fixture's")
+    cells = (("north star", "northstar", northstar_spec(), splits, X, Y, COND_ITERS, 42, "K1"),
+             ("config #5", "fidelity", fspec, fsplits, fX_tr, fY_tr, COND_FID_ITERS, FID_SEED,
+              "K2"))
+    for what, key, spec, spl, Xtr, Ytr, iters, seed, kernel in cells:
+        t0 = time.time()
+        runs, counts = {}, {}
+        for mode in ("device", "host", "off"):
+            kw = dict(compute_cond=False) if mode == "off" else dict(cond_mode=mode)
+            K.reset_launch_counts()
+            runs[mode] = train(spec, spl, Xtr, Ytr,
+                               TrainConfig(max_iter=iters, seed=seed, verbose=False, **kw),
+                               device=dev)
+            torch.cuda.synchronize()
+            counts[mode] = K.launch_counts()
+        for mode in ("host", "off"):
+            runs_identical(runs["device"], runs[mode], f"{what} cond {mode} vs device")
+        f64 = backfill_launches(iters, len(spl))
+        check(counts["host"][kernel + "_f64"] == f64
+              and counts["device"][kernel + "_f64"] == counts["off"][kernel + "_f64"] == 0,
+              f"{what}: float64 launches {counts}: want {f64} in the host backfill only")
+        host = np.array([h["condition_numbers"] for h in runs["host"].nll_history])
+        floors = np.array([h["condition_numbers"] for h in runs["device"].nll_history])
+        check(not bool(np.isnan(host).any()) and bool(np.all(np.isnan(
+            [h["condition_numbers"] for h in runs["off"].nll_history]))),
+            f"{what}: a host value missing, or off not all NaN")
+        rows = np.array(ref[key]["z_rows"])
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        got = host_condition_numbers(spec, spl, rows, device=dev)
+        ev[1].record()
+        torch.cuda.synchronize()
+        rel = hold_host_cond(got, ref[key]["cond"], what)
+        print(f"phase 13 cond {what} ({time.time() - t0:.2f} s) [{smi}]: {iters} iterations "
+              f"each with cond_mode device, host and off: one z trajectory, agent NLLs and CV "
+              f"identical; host backfill {len(spl)} {kernel}_f64 launches; at the JAX "
+              f"fixture's {len(rows)} z rows the backfill took {ev[0].elapsed_time(ev[1]):.2f} ms "
+              f"and agrees with JAX's host_condition_numbers (worst rel dev below 1e12: "
+              f"{rel:.2e}, bar {COND_RTOL} below {COND_EXACT_BELOW:.0e}, buckets above); the run's "
+              f"iteration 1, host (exact float64) vs device (float32-built Gram, floors): "
+              + ", ".join(f"{h:.4e} vs {d:.4e}" for h, d in zip(host[0], floors[0]))
+              + f"; JAX at its own iteration 1: "
+              + ", ".join(f"{w:.4e}" for w in ref[key]["cond"][0]), flush=True)
+
+    # the float64 kernels at the backfill's shapes: a 16-row chunk of the
+    # north star's largest shard, all 25 gate rows at once (6,500 samples),
+    # and config #5's 5 rows of a 225-row shard
+    t0 = time.time()
+    ns_circuit = northstar_spec().circuit
+    n_max = max(len(x) for x, _ in splits)
+    times = {}
+    for name, circuit, B, fn, plain, bound in (
+            ("K1_f64", ns_circuit, 16 * n_max, K.pauli_features_from_angles,
+             K.pauli_features_reference, k1_bound),
+            ("K1_f64", ns_circuit, GATE_ITERS * n_max, K.pauli_features_from_angles,
+             K.pauli_features_reference, k1_bound),
+            ("K2_f64", fspec.circuit, FID_ITERS * max(len(x) for x, _ in fsplits),
+             K.states_from_angles, K.states_reference, k2_bound)):
+        a = rand_angles(circuit, B, torch.float64)
+        ms, plain_ms = _alternate_ms([lambda: fn(circuit, a), lambda: plain(circuit, a)], 10)
+        times.setdefault(name, []).append({"B": B, "qubits": circuit.num_qubits, "ms": ms,
+                                           "plain_ms": plain_ms,
+                                           "bound_ms": bound(circuit, B, 8)[0]})
+    print(f"phase 13 float64 kernels at the backfill's shapes ({time.time() - t0:.2f} s) "
+          f"[{smi}]: " + "; ".join(
+              f"{name} B={t['B']} n={t['qubits']}: {t['ms']:.4f} ms vs plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms"
+              for name, ts in times.items() for t in ts), flush=True)
+    return times
+
+
+# the float32 kernels' names as the profiler reports them (each a substring
+# of its instantiations' demangled names, and of no other kernel's)
+PROFILED_NAMES = {"K1": "warp_pauli_features_kernel", "K2": "warp_states_kernel",
+                  "K1_vjp": "circuit_vjp_kernel"}
+
+
+def _profiled(fn, names=()):
+    """(result, kernels the profiler saw, their device ms, host wall ms,
+    {name: launches of the kernels whose name holds PROFILED_NAMES[name]})
+    of one call of ``fn``. The counts are the device's own record: kernels
+    replayed from a CUDA graph count each time they run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    n, us = 0, 0.0
+    counts = dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += e.count
+            us += e.self_device_time_total
+            for name in names:
+                if PROFILED_NAMES[name] in e.key:
+                    counts[name] += e.count
+    return out, n, us / 1e3, wall, counts
+
+
+def chained_phase(dev, smi: str, fid) -> dict:
+    """Phase 14: chain_iters on the card (a CUDA-graph replay a chunk)
+    against the per-iteration loop. Returns the chained launches and the
+    chunk statistics for the record."""
+    import torch
+
+    from dqgp_tpu_torch.driver import TrainConfig, host_condition_numbers, train
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    X, Y, _, _, splits = northstar_splits()
+    spec = northstar_spec()
+    fspec, fsplits, _, fX_tr, fY_tr = fid
+    out = {}
+
+    def timed(fn):
+        """(result, ms by CUDA events) of one call."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        res = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return res, ev[0].elapsed_time(ev[1])
+
+    for what, sp, spl, Xtr, Ytr, iters, k, seed, kernel in (
+            ("north star", spec, splits, X, Y, GATE_ITERS, CHAIN_K, 42, "K1"),
+            ("config #5", fspec, fsplits, fX_tr, fY_tr, CHAIN_FID_ITERS, CHAIN_K, FID_SEED, "K2"),
+            ("north star, a stop inside a chunk", spec, splits, X, Y, CHAIN_STOP_ITERS,
+             CHAIN_STOP_K, 42, "K1")):
+        t0 = time.time()
+        runs, ms, counts = {}, {}, {}
+        for chain in (1, k):
+            cfg = TrainConfig(max_iter=iters, seed=seed, chain_iters=chain, verbose=False)
+            K.reset_launch_counts()
+            runs[chain], ms[chain] = timed(lambda: train(sp, spl, Xtr, Ytr, cfg, device=dev))
+            counts[chain] = K.launch_counts()
+            ms[chain] /= iters
+        a, b = runs[1], runs[k]
+        nll_dev, cv_dev = runs_identical(a, b, f"{what}: chain_iters={k} vs 1")
+        st = b.chain_stats
+        per, replays = st["launches_per_replay"], st["replays"]
+        rescores = sum(h["solver"] == "float64-rescue" for h in b.cv_history)
+        rescues = sum(h["solver"].endswith("-rescue") for h in b.nll_history)
+        # a rescued row restarts chunking: one more replay each
+        check(st["captured"] and per == {kernel: 2 * k}
+              and (replays == -(-iters // k) or rescues > 0),
+              f"{what}: the graph captured {per} over {replays} replays: want "
+              f"{{{kernel!r}: {2 * k}}} over {-(-iters // k)}")
+        # The launches, measured: the same chained run again under the
+        # profiler, whose device record counts a graph's kernels at every
+        # replay (the wrappers count Python calls: the capture once, no
+        # replay). Eager: the warm-up's step and CV pass, CV re-scores and
+        # rescued rows; each replay: k steps and k CV passes.
+        cfg = TrainConfig(max_iter=iters, seed=seed, chain_iters=k, verbose=False)
+        p, n_k, dev_k, wall_k, measured = _profiled(
+            lambda: train(sp, spl, Xtr, Ytr, cfg, device=dev), (kernel,))
+        runs_identical(a, p, f"{what}: the profiled chained run")
+        launches = measured[kernel]
+        p_replays = p.chain_stats["replays"]
+        want = (2 + 2 * k * p_replays + sum(h["solver"] == "float64-rescue" for h in p.cv_history)
+                + sum(h["solver"].endswith("-rescue") for h in p.nll_history))
+        check(launches == want,
+              f"{what}: the profiler saw {launches} {kernel} launches in the chained run, want "
+              f"{want} (2 eager + {2 * k} a replay x {p_replays} + re-scores and rescues)")
+        steady = [h["iter_time"] for h in b.nll_history[k:]] or [float("nan")]
+        steady1 = [h["iter_time"] for h in a.nll_history[1:]]
+        # the backfill alone at the run's z rows: the same eigendecompositions
+        # that cond_mode "device" runs inside the steps
+        _, backfill_ms = timed(lambda: host_condition_numbers(
+            sp, spl, np.array([h["consensus_params"] for h in a.cv_history]), device=dev))
+        line = (f"phase 14 chained {what} ({time.time() - t0:.2f} s) [{smi}]: {iters} iterations "
+                f"in chunks of {k}: {replays} replays of one CUDA graph; z, theta, psi identical "
+                f"to the per-iteration run, agent NLL / CV rel dev {nll_dev:.1e} / {cv_dev:.1e}, "
+                f"stop {b.converged_by}@{b.iterations}; {kernel} launches measured by the "
+                f"profiler in a chained run {launches} = 2 eager + {2 * k} a replay x "
+                f"{p_replays} (+ CV re-scores {rescores}, rescued rows {rescues}; the wrappers "
+                f"counted {counts[k][kernel]}: the warm-up and the capture, no replay); train() "
+                f"by CUDA events {ms[1]:.3f} ms an "
+                f"iteration one at a time vs {ms[k]:.3f} chained (warm-up, capture and "
+                f"backfill included); steady iterations (host clock) median "
+                f"{np.median(steady1) * 1e3:.3f} vs {np.median(steady) * 1e3:.3f} ms; the first "
+                f"chunk (warm-up, capture, first replay) {b.nll_history[0]['iter_time'] * k:.3f} s "
+                f"of which warm-up {st['warmup_s']:.3f} s, capture {st['capture_s']:.3f} s; the "
+                f"backfill alone at the run's {iters} z rows {backfill_ms:.2f} ms; graph pool "
+                f"peak {st['graph_pool_peak_bytes'] / 2**20:.1f} MiB")
+        if iters == GATE_ITERS:
+            # kernels an iteration and the idle share, from the profiler over
+            # a whole run of each mode (its host cost is in the wall)
+            cfg1 = TrainConfig(max_iter=iters, seed=seed, verbose=False)
+            _, n, dev_ms, wall, _ = _profiled(lambda: train(sp, spl, Xtr, Ytr, cfg1, device=dev))
+            prof = {1: (n / iters, dev_ms / iters, wall / iters),
+                    k: (n_k / iters, dev_k / iters, wall_k / iters)}
+            line += "; profiled runs, one at a time vs chained: " + " vs ".join(
+                f"{n:.0f} kernels, device {d:.3f} ms, wall {w:.3f} ms an iteration, idle share "
+                f"{1 - d / w:.3f}" for n, d, w in prof.values())
+            # a longer run, over which the capture's one-time cost spreads
+            long = {}
+            for chain in (1, k):
+                cfg = TrainConfig(max_iter=CHAIN_LONG_ITERS, seed=seed, chain_iters=chain,
+                                  verbose=False)
+                long[chain] = timed(lambda: train(sp, spl, Xtr, Ytr, cfg, device=dev))
+            runs_identical(long[1][0], long[k][0], f"{what}, {CHAIN_LONG_ITERS} iterations")
+            long_ms = {c: t / long[c][0].iterations for c, (_, t) in long.items()}
+            line += (f"; {long[1][0].iterations} iterations ({long[1][0].converged_by}): "
+                     f"train() {long_ms[1]:.3f} vs {long_ms[k]:.3f} ms an iteration, identical")
+            out[kernel] = {"launches_chained": launches, "launches_per_replay": per[kernel],
+                           "replays": p_replays, "ms_per_iteration": ms[1],
+                           "ms_per_iteration_chained": ms[k],
+                           "ms_per_iteration_long_run": long_ms[1],
+                           "ms_per_iteration_long_run_chained": long_ms[k],
+                           "backfill_ms": backfill_ms,
+                           "graph_pool_peak_bytes": st["graph_pool_peak_bytes"],
+                           "profile": {str(c): dict(zip(("kernels", "device_ms", "wall_ms"), v))
+                                       for c, v in prof.items()}}
+        elif kernel == "K2":
+            out[kernel] = {"launches_chained": launches, "launches_per_replay": per[kernel],
+                           "replays": p_replays, "ms_per_iteration": ms[1],
+                           "ms_per_iteration_chained": ms[k],
+                           "graph_pool_peak_bytes": st["graph_pool_peak_bytes"]}
+        print(line, flush=True)
+    return out
+
+
+def vjp_ops(circuit, output: str) -> int:
+    """The adjoint kernel's operations for one sample: the forward sequence,
+    lambda's seed (2 O psi: 24 operations an amplitude pair and qubit; a
+    copy for a state's cotangent), every gate undone on both states, and
+    each rotation's Im <lambda|P|phi> (8 an amplitude pair, 4 an amplitude
+    for RZZ)."""
+    from dqgp_tpu_torch.ops.circuit import CRX, CRY, CRZ, CX, CZ, RZZ, H
+
+    dim, n = circuit.dim, circuit.num_qubits
+    ops = 3 * gate_ops(circuit) + (24 * n * (dim // 2) if output == "features" else 0)
+    for g in circuit.gates:
+        if g.kind == RZZ:
+            ops += 4 * dim
+        elif g.kind not in (H, CX, CZ):
+            ops += 8 * (dim // 4 if g.kind in (CRX, CRY, CRZ) else dim // 2)
+    return ops
+
+
+def vjp_bound(circuit, B: int, output: str):
+    """The adjoint kernel: angles (B, G) and the cotangent in, the gradient
+    (B, G) out, float32."""
+    cot = 3 * circuit.num_qubits if output == "features" else 2 * circuit.dim
+    return bound_ms(4 * B * (2 * circuit.num_gates + cot), B * vjp_ops(circuit, output))
+
+
+def check_vjp(rand_angles, rows: int) -> dict:
+    """Phase 15a: the adjoint kernel (K1's and K2's backward) against its
+    plain version (torch.autograd through K1's and K2's plain versions) on
+    the same CUDA tensors, for 8 families x every qubit count 1..10 x batch
+    {1, 130} x both outputs, plus the autodiff step's own shape (the north
+    star's circuit at ``rows`` = agents x Nmax feature rows); the worst
+    |diff| / max(1, max |plain|), and the kernel's times there against the
+    plain version's, with its bound."""
+    import torch
+
+    from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    t0 = time.time()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def cotangent(circuit, B, output):
+        if output == "features":
+            return torch.rand((B, 3 * circuit.num_qubits), generator=gen, device="cuda") * 2 - 1
+        return torch.randn((B, circuit.dim), generator=gen, device="cuda",
+                           dtype=torch.complex64)
+
+    main_circuit = northstar_spec().circuit
+    cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B, out)
+             for enc in ENCODING_TYPES for n in WARP_QUBITS for B in (1, 130)
+             for out in K.VJP_OUTPUTS]
+    cases += [(main_circuit, rows, "features"), (main_circuit, STEP_ROWS, "features")]
+    worst = worst_abs = 0.0
+    for circuit, B, output in cases:
+        a = rand_angles(circuit, B)
+        cot = cotangent(circuit, B, output)
+        got = K.circuit_vjp(circuit, a, cot, output)
+        want = K.circuit_vjp_reference(circuit, a, cot, output)
+        torch.cuda.synchronize()
+        check(got.shape == a.shape and got.dtype == torch.float32,
+              f"adjoint shape {tuple(got.shape)} {got.dtype}")
+        diff = float((got - want).abs().max())
+        err = diff / max(1.0, float(want.abs().max()))
+        check(np.isfinite(err) and err <= VJP_TOL,
+              f"adjoint vs plain {circuit.name} {circuit.num_qubits}q B={B} {output}: {err}")
+        worst, worst_abs = max(worst, err), max(worst_abs, diff)
+    a = rand_angles(main_circuit, rows)
+    cot = cotangent(main_circuit, rows, "features")
+    ms, plain_ms = _alternate_ms(
+        [lambda: K.circuit_vjp(main_circuit, a, cot, "features"),
+         lambda: K.circuit_vjp_reference(main_circuit, a, cot, "features")], 20)
+    device_ms = _device_ms(lambda: K.circuit_vjp(main_circuit, a, cot, "features"), 20)
+    bound, bound_by = vjp_bound(main_circuit, rows, "features")
+    print(f"phase 15a adjoint vs plain ({time.time() - t0:.2f} s): {len(cases)} cases, worst "
+          f"|diff| / max(1, max |plain|) {worst:.3e} (tol {VJP_TOL}), max abs diff "
+          f"{worst_abs:.3e}; at the autodiff step's "
+          f"B={rows} G={main_circuit.num_gates} n={NUM_QUBITS}: {ms:.4f} ms a call vs plain "
+          f"(autograd) {plain_ms:.4f} ms, the kernel alone (profiler) {device_ms:.4f} ms, bound "
+          f"{bound:.5f} ms ({bound_by})", flush=True)
+    return {"max_abs_err": worst_abs, "max_rel_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": bound_by, "device_ms": device_ms, "B": rows}
+
+
+def autodiff_phase(dev, smi: str, rand_angles) -> dict:
+    """Phase 15: the adjoint kernel against its plain version (15a), then
+    the north star with grad_method="autodiff" against the JAX fixture's
+    run, and iteration 1's gradient beside JAX's. Returns the adjoint's
+    record."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.driver import TrainConfig, train
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.parallel.consensus import autodiff_nll_and_grad, make_agent_batch
+
+    with open(DRIVER_MODES_FIXTURE) as f:
+        ref = json.load(f)["autodiff"]
+    X, Y, X_test, Y_test, splits = northstar_splits()
+    check(problem_digest(X, Y, X_test, Y_test) == ref["problem_sha256"],
+          "north-star data differ from the autodiff fixture's")
+    rows = N_AGENTS * max(len(x) for x, _ in splits)
+    vjp = check_vjp(rand_angles, rows)
+    spec = northstar_spec()
+    cfg = TrainConfig(max_iter=AUTODIFF_ITERS, grad_method="autodiff", verbose=False)
+    t0 = time.time()
+    K.reset_launch_counts()
+    res = train(spec, splits, X, Y, cfg, device=dev)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    train_s = time.time() - t0
+    rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
+    f64 = backfill_launches(AUTODIFF_ITERS, N_AGENTS)
+    check(counts["K1"] == 2 * AUTODIFF_ITERS + rescores and counts["K1_vjp"] == AUTODIFF_ITERS
+          and counts["K1_f64"] == f64
+          and sum(counts.values()) == counts["K1"] + counts["K1_vjp"] + f64,
+          f"autodiff launches {counts}: want K1 = 2*{AUTODIFF_ITERS} + {rescores} (each step's "
+          f"Gram and CV pass), K1_vjp = {AUTODIFF_ITERS} (each step's backward) and K1_f64 = "
+          f"{f64}")
+    check((res.iterations, res.converged_by) == (ref["iterations"], ref["converged_by"]),
+          f"autodiff run stopped {res.converged_by}@{res.iterations}")
+    z = np.array([h["consensus_params"] for h in res.cv_history])
+    cv = np.array([h["consensus_cv_score"] for h in res.cv_history])
+    z_dev = float(np.abs(z - np.array(ref["z_trajectory"])).max())
+    cv_dev = float(np.abs(cv - np.array(ref["cv_nlpd"])).max())
+    z1 = torch.as_tensor(ref["iteration1_z"], dtype=torch.float64, device=dev)
+    g = autodiff_nll_and_grad(spec, make_agent_batch(splits, dev), M.wrap(z1), cfg.noise_std,
+                              compute_cond=False).grad.cpu().numpy()
+    g_ref = np.array(ref["iteration1_grad"])
+    g_dev = float(np.abs(g - g_ref).max() / np.abs(g_ref).max())
+    check(bool(np.all(np.isfinite(g))), "non-finite autodiff gradient")
+    worst = np.unravel_index(np.argmax(np.abs(g - g_ref)), g.shape)
+    print(f"phase 15 autodiff ({train_s:.2f} s) [{smi}]: {AUTODIFF_ITERS} iterations with "
+          f"grad_method=autodiff, launches {counts}; z dev {z_dev:.1e} (tol {Z_TOL}), CV-NLPD dev "
+          f"{cv_dev:.2e} (tol {NLPD_TOL}); iteration 1's gradient vs jax.value_and_grad: max "
+          f"|diff| / max |g| = {g_dev:.2e} (tol {AUTODIFF_GRAD_TOL}); agent 1 "
+          + ", ".join(f"{a:.4f}/{b:.4f}" for a, b in zip(g[0, :6], g_ref[0, :6]))
+          + f" ...; the largest difference at agent {worst[0] + 1}, component {worst[1]}: "
+          f"{g[worst]:.5f} vs {g_ref[worst]:.5f}", flush=True)
+    check(z_dev <= Z_TOL, f"autodiff z trajectory deviates {z_dev} > {Z_TOL}")
+    check(cv_dev <= NLPD_TOL, f"autodiff CV-NLPD deviates {cv_dev} > {NLPD_TOL}")
+    check(g_dev <= AUTODIFF_GRAD_TOL,
+          f"autodiff gradient deviates {g_dev:.2e} > {AUTODIFF_GRAD_TOL} of its largest component")
+    return {"launches": counts["K1_vjp"], **vjp}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1286,7 +1793,14 @@ def main(argv=None) -> int:
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     check(launches == 2 * ITERS + 2 + rescores,
           f"K1 launches {launches} != 2*{ITERS} + 2 + {rescores} re-scores")
-    check(sum(counts.values()) == launches, f"other kernels ran on the K1 path: {counts}")
+    launches_f64 = counts["K1_f64"]
+    check(launches_f64 == backfill_launches(ITERS, N_AGENTS),
+          f"K1_f64 launches {launches_f64}: want {backfill_launches(ITERS, N_AGENTS)} (the "
+          f"condition-number backfill)")
+    check(sum(counts.values()) == launches + launches_f64,
+          f"other kernels ran on the K1 path: {counts}")
+    check(not any(np.isnan(h["condition_numbers"]).any() for h in res.nll_history),
+          "the backfill left a condition number out")
     nlls = [v for h in res.nll_history for v in h["agent_losses"]]
     cvs = [h["consensus_cv_score"] for h in res.cv_history]
     check(res.iterations == ref["iterations"] and res.converged_by == ref["converged_by"],
@@ -1300,7 +1814,8 @@ def main(argv=None) -> int:
     cv_dev = float(np.abs(np.array(cvs) - np.array(ref["cv_nlpd"])).max())
     nlpd_dev = abs(metrics["nlpd"] - ref["test_metrics"]["nlpd"])
     print(f"phase 4 main path: {ITERS} ADMM iterations + predict in {main_s:.2f} s; "
-          f"K1 launches {launches} (= 2*{ITERS} + 2 + {rescores} f64 CV re-scores); "
+          f"K1 launches {launches} (= 2*{ITERS} + 2 + {rescores} f64 CV re-scores), K1_f64 "
+          f"{launches_f64} (the condition-number backfill); "
           f"z dev {z_dev:.1e} (tol {Z_TOL}), CV-NLPD dev {cv_dev:.2e}, test NLPD "
           f"{metrics['nlpd']:.4f} vs {ref['test_metrics']['nlpd']:.4f} "
           f"(tol {NLPD_TOL}), test R2 {metrics['r2']:.4f}", flush=True)
@@ -1313,19 +1828,24 @@ def main(argv=None) -> int:
     gate = northstar_gate(dev)
 
     # 5. times (after warm-up; launches here are not the main path's) -------
-    step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std)
     batch = make_agent_batch(splits, dev)
     Xt, Yt = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
     state = [torch.as_tensor(res.theta, device=dev), torch.as_tensor(res.psi, device=dev)]
     folds = kfold_pad_indices(N_SAMPLES, cfg.cv_folds, cfg.seed, dev)
 
-    def iteration():
-        out = step(state[0], state[1], batch)
-        cv_fold_scores_impl(spec, Xt, Yt, out.z, *folds, noise_std=cfg.noise_std)
-        state[0], state[1] = out.theta, out.psi
+    def iteration_fn(compute_cond):
+        step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
+                              compute_cond=compute_cond)
 
-    iteration()
-    iter_ms = _cuda_time_ms(iteration, 5)
+        def iteration():
+            out = step(state[0], state[1], batch)
+            cv_fold_scores_impl(spec, Xt, Yt, out.z, *folds, noise_std=cfg.noise_std)
+            state[0], state[1] = out.theta, out.psi
+        return iteration
+
+    # as train() runs it on the card (cond_mode "auto" = "host": no
+    # condition numbers in the step), and with them in the step ("device")
+    iter_ms, iter_cond_ms = _alternate_ms([iteration_fn(False), iteration_fn(True)], 5)
 
     k1 = time_k1(rand_angles)
 
@@ -1337,7 +1857,9 @@ def main(argv=None) -> int:
     gram_1000()
     gram_ms = _cuda_time_ms(gram_1000, 20)
     print(f"phase 5 times [{smi}]: ADMM iteration (step + 5-fold CV) "
-          f"{iter_ms:.3f} ms; {k1_times_text(k1)}; 1000x1000 projected Gram "
+          f"{iter_ms:.3f} ms as train() runs it on the card (cond_mode host), "
+          f"{iter_cond_ms:.3f} ms with the condition numbers in the step (cond_mode device); "
+          f"{k1_times_text(k1)}; 1000x1000 projected Gram "
           f"{gram_ms:.4f} ms ({1e6 / (gram_ms * 1e-3):.3e} entries/s)", flush=True)
 
     # 6. K2, K1 float64 and K4 vs their plain versions on the card ------------
@@ -1371,10 +1893,12 @@ def main(argv=None) -> int:
     fid_s = time.time() - t1
     fcounts = K.launch_counts()
     frescores = sum(h["solver"] == "float64-rescue" for h in fres.cv_history)
-    check(fcounts["K2"] == 2 * FID_ITERS + 2 + frescores and fcounts["K2_f64"] == 1
+    fid_f64 = 1 + backfill_launches(FID_ITERS, FID_AGENTS)
+    check(fcounts["K2"] == 2 * FID_ITERS + 2 + frescores and fcounts["K2_f64"] == fid_f64
           and fcounts["K1"] == fcounts["K1_f64"] == fcounts["K4"] == 0,
           f"fidelity path launches {fcounts}: want K2 = 2*{FID_ITERS} + 2 + "
-          f"{frescores}, K2_f64 = 1 (the dataset Gram), no other kernel")
+          f"{frescores}, K2_f64 = {fid_f64} (the dataset Gram and the condition-number "
+          f"backfill), no other kernel")
     check(fres.converged_by == fref["converged_by"], f"stopped by {fres.converged_by}")
     check(fmean.shape == (len(X_te),) and bool(torch.isfinite(fmean).all())
           and bool(torch.isfinite(fvar).all()), "non-finite fidelity prediction")
@@ -1386,7 +1910,7 @@ def main(argv=None) -> int:
     print(f"phase 7 fidelity path: dataset ({FID_SAMPLES} rows, f64 Gram on the card) "
           f"in {gen_s:.2f} s, Y dev {y_dev:.2e} (tol 1e-6); {FID_ITERS} ADMM iterations "
           f"+ predict in {fid_s:.2f} s; launches {fcounts} (K2 = 2*{FID_ITERS} + 2 + "
-          f"{frescores} re-scores); z dev {fz_dev:.1e} (tol {Z_TOL}), agent NLL rel dev "
+          f"{frescores} re-scores, K2_f64 = 1 + {fid_f64 - 1} backfill); z dev {fz_dev:.1e} (tol {Z_TOL}), agent NLL rel dev "
           f"{fnll_dev:.2e} (tol {NLL_RTOL}), worst CV-NLPD dev / bar {fcv_ratio:.3f}, "
           f"CV-NLPD {[round(h['consensus_cv_score'], 4) for h in fres.cv_history]} vs "
           f"JAX f32 {[round(v, 4) for v in fref['cv_nlpd']]}; test NLPD "
@@ -1405,10 +1929,12 @@ def main(argv=None) -> int:
     finally:
         config.use_fusion = "auto"
     urescores = sum(h["solver"] == "float64-rescue" for h in ures.cv_history)
-    check(ucounts["K4"] == 2 * FID_FUSED_ITERS + urescores
-          and sum(ucounts.values()) == ucounts["K4"],
+    ufid_f64 = backfill_launches(FID_FUSED_ITERS, FID_AGENTS)
+    check(ucounts["K4"] == 2 * FID_FUSED_ITERS + urescores and ucounts["K2_f64"] == ufid_f64
+          and sum(ucounts.values()) == ucounts["K4"] + ufid_f64,
           f"fused path launches {ucounts}: want K4 = 2*{FID_FUSED_ITERS} + "
-          f"{urescores} and no other kernel")
+          f"{urescores}, K2_f64 = {ufid_f64} (the backfill: float64 never fuses) and no "
+          f"other kernel")
     uz_dev, unll_dev, ucv_ratio = check_fidelity_run(ures, fref, FID_FUSED_ITERS, "fused")
     program = fuse_circuit(fspec.circuit)
     print(f"phase 8 fused fidelity path: {FID_FUSED_ITERS} ADMM iterations, "
@@ -1417,18 +1943,22 @@ def main(argv=None) -> int:
           f"{unll_dev:.2e}, worst CV-NLPD dev / bar {ucv_ratio:.3f}", flush=True)
 
     # 9. times of the fidelity path ------------------------------------------
-    fstep = make_admm_step(fspec, rho=fcfg.rho, L=fcfg.L, noise_std=fcfg.noise_std)
     fbatch = make_agent_batch(fsplits, dev)
     FXt, FYt = torch.as_tensor(X_tr, device=dev), torch.as_tensor(Y_tr, device=dev)
     fstate = [torch.as_tensor(fres.theta, device=dev), torch.as_tensor(fres.psi, device=dev)]
     ffolds = kfold_pad_indices(len(X_tr), fcfg.cv_folds, fcfg.seed, dev)
 
-    def fid_iteration():
-        out = fstep(fstate[0], fstate[1], fbatch)
-        cv_fold_scores_impl(fspec, FXt, FYt, out.z, *ffolds, noise_std=fcfg.noise_std)
+    def fid_iteration_fn(compute_cond):
+        fstep = make_admm_step(fspec, rho=fcfg.rho, L=fcfg.L, noise_std=fcfg.noise_std,
+                               compute_cond=compute_cond)
 
-    fid_iteration()
-    fid_iter_ms = _cuda_time_ms(fid_iteration, 5)
+        def fid_iteration():
+            out = fstep(fstate[0], fstate[1], fbatch)
+            cv_fold_scores_impl(fspec, FXt, FYt, out.z, *ffolds, noise_std=fcfg.noise_std)
+        return fid_iteration
+
+    fid_iter_ms, fid_iter_cond_ms = _alternate_ms([fid_iteration_fn(False),
+                                                   fid_iteration_fn(True)], 5)
 
     fz32 = torch.as_tensor(fres.z, device=dev)
 
@@ -1438,9 +1968,16 @@ def main(argv=None) -> int:
     fid_gram()
     fgram_ms = _cuda_time_ms(fid_gram, 20)
     print(f"phase 9 times [{smi}]: fidelity ADMM iteration (step + 5-fold CV) "
-          f"{fid_iter_ms:.3f} ms; {len(X_tr)}x{len(X_tr)} fidelity Gram {fgram_ms:.4f} ms "
+          f"{fid_iter_ms:.3f} ms as train() runs it on the card, {fid_iter_cond_ms:.3f} ms "
+          f"with the condition numbers in the step; {len(X_tr)}x{len(X_tr)} fidelity Gram {fgram_ms:.4f} ms "
           f"({len(X_tr) ** 2 / (fgram_ms * 1e-3):.3e} entries/s)", flush=True)
     st = time_states(rand_angles, smi)
+
+    # 13-15. the driver's modes: cond_mode, chain_iters, autodiff ------------
+    fid = (fspec, fsplits, FX, X_tr, Y_tr)
+    backfill = cond_phase(dev, smi, rand_angles, fid)
+    chained = chained_phase(dev, smi, fid)
+    adjoint = autodiff_phase(dev, smi, rand_angles)
 
     k3 = config7_phases(dev, smi, rand_angles)
 
@@ -1449,13 +1986,16 @@ def main(argv=None) -> int:
          "source": "dqgp_tpu_torch/csrc/pauli_features.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:392",
          "launches": launches, "max_abs_err": worst, **k1,
-         "library_ms": None, "max_abs_err_f64": err["K1_f64"], "gate_25_iterations": gate},
+         "library_ms": None, "max_abs_err_f64": err["K1_f64"], "gate_25_iterations": gate,
+         "launches_f64": launches_f64, "f64_backfill": backfill["K1_f64"],
+         "chained": chained["K1"]},
         {"name": "states (K2)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:238",
          "launches": fcounts["K2"], "max_abs_err": err["K2"], **st["K2"],
          "library_ms": None, "launches_f64": fcounts["K2_f64"],
-         "max_abs_err_f64": err["K2_f64"]},
+         "max_abs_err_f64": err["K2_f64"], "f64_backfill": backfill["K2_f64"],
+         "chained": chained["K2"]},
         {"name": "pauli_features_fused (K3)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features_fused.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:330", **k3},
@@ -1464,6 +2004,12 @@ def main(argv=None) -> int:
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:278",
          "launches": ucounts["K4"], "max_abs_err": err["K4"], **st["K4"],
          "library_ms": None, "max_abs_err_vs_unfused": err["K4_unfused"]},
+        {"name": "circuit_vjp (the backward of K1 and K2)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/circuit_vjp.cu",
+         "replaces": "dqgp_tpu/parallel/consensus.py:157",
+         "replaces_note": "jax.value_and_grad through the XLA engine: the Pallas kernels "
+                          "have no VJP, so there is no TPU kernel",
+         **adjoint, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,7 +12,15 @@ off (``config``).
 """
 
 from . import config  # noqa: F401  (applies the precision policy)
-from .driver import TrainConfig, TrainResult, train  # noqa: F401
+from . import manifold  # noqa: F401
+from .agent import RiemannianAgent  # noqa: F401
+from .driver import TrainConfig, TrainResult, host_condition_numbers, train  # noqa: F401
+from .manifold import (  # noqa: F401
+    RiemannianADMM,
+    RiemannianOptimizer,
+    TorusManifold,
+    create_riemannian_framework,
+)
 from .models.circuits import build_circuit  # noqa: F401
 from .models.kernels import (  # noqa: F401
     QuantumKernel,

@@ -6,10 +6,10 @@
   Pauli-feature and states kernels on the card), as the JAX package's XLA
   engine does on CPU and GPU.
 * The GP side (Grams handed to solves, NLL, gradients, CV folds, posterior)
-  runs in direct float64, which is native on the card — the JAX package's
-  ``resolve_dtype_mode("auto")`` picks the same on CPU and GPU. Its "mixed"
-  solver and "float32" mode exist for emulated float64 on TPUs and are not
-  ported.
+  runs in direct float64 by default, which is native on the card — the JAX
+  package's ``resolve_dtype_mode("auto")`` picks the same on CPU and GPU.
+  The driver's ``gp_dtype`` / ``cv_dtype`` may ask for "float32"; the
+  "mixed" solver exists for emulated float64 on TPUs and is not ported.
 * TF32 is off. ``_sqdist`` is a matmul, and Matérn Grams built from nearly
   parallel features go indefinite under reduced-precision products (the
   JAX package pins ``jax_default_matmul_precision="highest"`` for the same
@@ -25,6 +25,31 @@ import os
 import torch
 
 GP_DTYPE = torch.float64
+
+_GP_DTYPES = {"float64": torch.float64, "float32": torch.float32}
+
+
+def resolve_dtype_mode(mode: str) -> str:
+    """Resolve a GP/CV linalg dtype mode ("auto" | "float64" | "float32")
+    as ``dqgp_tpu/config.py::resolve_dtype_mode`` does off a TPU: "auto" is
+    "float64" on the CPU and on CUDA. "mixed" (float32 factorization +
+    float64 refinement) answers emulated float64 and is on ROADMAP's "not
+    ported on purpose" list (``solve_psd_mixed``)."""
+    if mode == "auto":
+        return "float64"
+    if mode == "mixed":
+        raise ValueError(
+            "dtype mode 'mixed' is not ported: solve_psd_mixed answers emulated "
+            "float64 on TPUs (ROADMAP, 'Not ported on purpose'); float64 is native "
+            "on the CPU and the card")
+    if mode not in _GP_DTYPES:
+        raise ValueError(f"dtype mode must be 'auto', 'float64' or 'float32', got {mode!r}")
+    return mode
+
+
+def torch_dtype(mode: str) -> torch.dtype:
+    """The torch dtype of a GP/CV dtype mode ("auto" resolves first)."""
+    return _GP_DTYPES[resolve_dtype_mode(mode)]
 
 # The gate-fusion switch, verbatim from dqgp_tpu/config.py:34-50 (the
 # thresholds were measured on a TPU v5e and stay until the card's own K2 vs

@@ -1,9 +1,29 @@
-"""ADMM training orchestrator — port of ``dqgp_tpu/driver.py``'s
-per-iteration mode (reference: main.py:2403-2784).
+"""ADMM training orchestrator — port of ``dqgp_tpu/driver.py`` (reference:
+main.py:2403-2784).
 
 Each iteration runs the consensus step and then scores its z with k-fold CV
-on the same device; the host keeps the bookkeeping: CV model selection with
-patience, ground-truth tracking, metrics history and checkpoints.
+on the same device; the host keeps the bookkeeping (``record_iteration``):
+CV model selection with patience, ground-truth tracking, metrics history and
+checkpoints. Everything the host reads of an iteration comes back as one
+packed float64 row. The loop runs chunks of ``chain_iters`` iterations
+(``_ChunkRunner``) with one fetch of their rows a chunk:
+
+* ``chain_iters=1``: one iteration a chunk, run eagerly with the full
+  fallback;
+* ``chain_iters=k>1``: k iterations a chunk. On CUDA the k steps and CV passes are captured once in a CUDA graph
+  after one eager warm-up iteration, and each chunk is one replay; on a CPU
+  device the same chunk runs eagerly. The chunk's step flags a failed
+  factorization (NaN) instead of rescuing it, which would need the host; a
+  flagged row is re-run eagerly with the full eigh-pinv fallback from its
+  pre-row state and chunking restarts from there, as the JAX driver's
+  ``redo64`` does, so the trajectory is the per-iteration loop's. Rows past
+  a stop are discarded.
+
+Condition numbers are reporting only (``cond_mode``): "device" computes them
+in the step from the float32-built Gram; "host" drops them from the step and
+backfills exact float64 values after training (``host_condition_numbers``);
+"auto" is "device" on a CPU device and "host" elsewhere; ``compute_cond=False``
+turns them off.
 
 Stopping rules (main.py:2767-2784): consensus ``all(||z - theta_i||_2 < tol)``
 (Euclidean norm — a reference quirk, NOT the Riemannian distance), CV patience
@@ -11,12 +31,11 @@ exhaustion, or max_iter; on the latter two the best-CV z is restored.
 
 Nothing here catches a failure of device work: an exception propagates and
 the run fails (the JAX driver's fallbacks to other dispatch modes have no
-counterpart here). The GP side is direct float64. The gradient is the
-central difference, materialized ("central") or streamed one parameter at a
-time ("streamed", the scale-out path); CV can model-select on a seeded
-subsample of the training rows (``cv_max_samples``), as the JAX driver does.
-The JAX driver's other dtype modes, its "autodiff" gradient, host condition
-numbers, meshes and chained dispatch are not ported.
+counterpart here). The gradient is the central difference, materialized
+("central") or streamed one parameter at a time ("streamed", the scale-out
+path), or exact by autograd ("autodiff"); CV can model-select on a seeded
+subsample of the training rows (``cv_max_samples``). Meshes are not ported:
+the port trains on one device.
 """
 
 from __future__ import annotations
@@ -33,17 +52,25 @@ import torch
 from . import config
 from . import manifold as M
 from .models.gp.cv import (
+    FoldIndexBuffers,
     aggregate_cv_scores,
     cv_fold_scores_impl,
     k_fold_cross_validation_consensus,
-    kfold_pad_indices,
 )
-from .models.kernels.quantum_kernel import QuantumKernelSpec
+from .models.kernels.quantum_kernel import QuantumKernelSpec, grams_at_rows
+from .ops import cuda_circuit
 from .parallel.consensus import make_admm_step, make_agent_batch
+
+COND_MODES = ("auto", "device", "host")
 
 
 @dataclasses.dataclass
 class TrainConfig:
+    """The JAX driver's ``TrainConfig``, field for field (names and
+    defaults). The port honours all of them but the mesh fields
+    (``n_mesh_devices``, ``data_mesh_cols``, ``solve_2d``), which take only
+    their defaults."""
+
     rho: float = 100.0
     L: float = 100.0
     noise_std: float = 0.1
@@ -54,19 +81,35 @@ class TrainConfig:
     cv_patience: int = 50
     seed: int = 42
     parity_round: bool = True       # 4-decimal quantization (reference quirk)
-    compute_cond: bool = True       # per-iteration condition numbers: f64
-                                    # eigvalsh of each agent's step Gram, on
-                                    # the step's device (the JAX "device" mode)
+    compute_cond: bool = True       # per-iteration condition numbers (eigvalsh)
+    cond_mode: str = "auto"         # where they compute: "device" in the step
+                                    # (f64 eigvalsh of the f32-built Gram:
+                                    # values beyond ~1e7-1e8 are floors);
+                                    # "host" after training, from each agent's
+                                    # float64 Gram (complex128 states) on the
+                                    # training device; "auto" = device on a
+                                    # CPU device, host elsewhere
+    gp_dtype: str = "auto"          # GP linalg dtype: "auto" = "float64";
+                                    # "float32"; "mixed" is not ported
+    cv_dtype: str = "auto"          # CV fold dtype, same modes as gp_dtype
     psd_fallback: bool = True       # eigh-pinv rescue of failed factorizations
     grad_method: str = "central"    # "central" (parity) | "streamed" (parity,
-                                    # O(A N^2) memory)
+                                    # O(N^2) memory) | "autodiff" (exact)
     run_cv: bool = True             # per-iteration k-fold CV model selection
     cv_max_samples: Optional[int] = None  # subsample X_train for CV beyond
                                     # this size (the dense fold Grams are
                                     # O(n^2); scale-out runs cap the CV set)
+    chain_iters: int = 1            # >1: this many iterations per dispatch
+                                    # and one fetch (a CUDA-graph replay on
+                                    # the card); the trajectory and stopping
+                                    # iteration are the per-iteration loop's
+    n_mesh_devices: Optional[int] = None  # meshes: not ported (None only)
+    data_mesh_cols: Optional[int] = None  # not ported (None only)
+    solve_2d: str = "replicated"    # not ported ("replicated" only)
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 10
     verbose: bool = True
+    verbose_agents: bool = False    # reference-style per-agent NLL/cond report
 
 
 @dataclasses.dataclass
@@ -84,6 +127,7 @@ class TrainResult:
     z_best_gt: Optional[np.ndarray]
     error_best: float
     total_time: float
+    chain_stats: Optional[Dict] = None  # chained dispatch: see _ChunkRunner
 
 
 def init_admm_state(n_agents: int, num_parameters: int, seed: int, rho: float,
@@ -135,16 +179,195 @@ def load_checkpoint(path: str):
     }
 
 
-def _warn_device_cond_floor(compute_cond: bool, device: torch.device) -> None:
-    """The step's Gram is BUILT in float32, so its exact f64 eigvalsh cannot
-    resolve condition numbers beyond ~1e7-1e8: on the card they are floors,
-    not measurements of the reference's 1e12/1e15 buckets. Say so once."""
-    if compute_cond and device.type != "cpu":
-        print("Warning: condition numbers on the device come from the f32-built "
-              "step Gram: values beyond ~1e7-1e8 saturate (f32 Gram "
-              "representation error). Reported values are lower bounds; exact "
-              "f64 buckets need the JAX package's cond_mode='host', which is "
-              "not ported yet.")
+def host_condition_numbers(
+    spec: QuantumKernelSpec,
+    agent_data_splits: Sequence[Tuple[np.ndarray, np.ndarray]],
+    z_rows: np.ndarray,
+    chunk: int = 16,
+    *,
+    device,
+) -> np.ndarray:
+    """Per-agent condition numbers of the noise-free Gram at each parameter
+    row: the port of ``dqgp_tpu/driver.py::host_condition_numbers``.
+
+    For every agent its true n_i x n_i Gram (no shard padding) at wrap(z),
+    built in float64 from complex128 states, then an eigvalsh and
+    max|w| / max(min|w|, tiny): the reference's ``np.linalg.cond`` on its
+    double-precision Grams (agent_riemannian.py:411), which resolves its
+    1e12/1e15 buckets where the step's float32-built Gram floors at
+    ~1e7-1e8. The rows go in chunks of ``chunk``, each chunk's rows x n_i
+    samples through one feature call (``grams_at_rows``).
+
+    It runs on ``device``: on the card through K1's and K2's float64
+    instantiations. The JAX package sends this work to the CPU because a TPU
+    emulates float64; the card computes float64 natively.
+
+    z_rows: (T, P). Returns (T, A) float64."""
+    device = torch.device(device)
+    Z = np.asarray(z_rows, np.float64).reshape(-1, np.shape(z_rows)[-1])
+    out = np.empty((Z.shape[0], len(agent_data_splits)), np.float64)
+    tiny = torch.finfo(torch.float64).tiny
+    step = max(1, int(chunk))
+    # wrap as the step does: with parity rounding a component can be
+    # 3.1416 > pi, and circuit angles are affine in theta, not pi-periodic
+    Zw = M.wrap(torch.as_tensor(Z, device=device))
+    Xs = [torch.as_tensor(np.asarray(X_i, np.float64), device=device)
+          for X_i, _ in agent_data_splits]
+    for s in range(0, Z.shape[0], step):
+        for a, X_i in enumerate(Xs):
+            w = torch.abs(torch.linalg.eigvalsh(grams_at_rows(spec, X_i, Zw[s:s + step])))
+            cond = torch.amax(w, dim=-1) / torch.clamp(torch.amin(w, dim=-1), min=tiny)
+            out[s:s + step, a] = cond.cpu().numpy()
+    return out
+
+
+def resolve_cond_mode(cfg: TrainConfig, device: torch.device) -> str:
+    """"device" | "host" | "off", as dqgp_tpu/driver.py:312-321 resolves it,
+    with the training device in place of JAX's default backend."""
+    if cfg.cond_mode not in COND_MODES:
+        raise ValueError(
+            f"cond_mode must be 'auto', 'device', or 'host', got {cfg.cond_mode!r}")
+    mode = cfg.cond_mode
+    if mode == "auto":
+        mode = "device" if device.type == "cpu" else "host"
+    return mode if cfg.compute_cond else "off"
+
+
+_warned_cond_floor = []
+
+
+def _warn_device_cond_floor(cond_mode: str, device: torch.device) -> None:
+    """With cond_mode="device" off the CPU the condition numbers come from
+    the f32-built step Gram, whose representation error floors resolvable
+    values at ~1e7-1e8: readings in the reference's 1e12/1e15 buckets would
+    be lower bounds. Say so once a process (dqgp_tpu/driver.py:271-282)."""
+    if cond_mode == "device" and device.type != "cpu" and not _warned_cond_floor:
+        _warned_cond_floor.append(True)
+        print("Warning: cond_mode='device' off the CPU: condition numbers beyond "
+              "~1e7-1e8 saturate (f32 Gram representation error). Reported values "
+              "are lower bounds; use cond_mode='auto'/'host' for exact f64 buckets.")
+
+
+def _check_unported(cfg: TrainConfig) -> None:
+    for name, default in (("n_mesh_devices", None), ("data_mesh_cols", None),
+                          ("solve_2d", "replicated")):
+        if getattr(cfg, name) != default:
+            raise NotImplementedError(
+                f"TrainConfig.{name}={getattr(cfg, name)!r}: meshes are not ported "
+                f"(ROADMAP Queue 1 item 11, multi-device); the port trains on one "
+                f"device and takes only {name}={default!r}")
+
+
+def _cond_status(c: float, compute_cond: bool) -> str:
+    """The reference's buckets (main.py:2557-2643)."""
+    if not compute_cond:
+        return "n/a"
+    if not np.isfinite(c):
+        return "Poor"
+    return "Good" if c < 1e12 else ("Moderate" if c < 1e15 else "Poor")
+
+
+class _RowLayout:
+    """One iteration as one float64 row: [z (P) | ||z - theta_i|| (A) | nll
+    (A) | cond (A) | logdet (A) | quad (A) | const (A) | CV nlpd, r2, rmse
+    (3k, with CV) | theta (A*P) | psi (A*P)], as the JAX driver packs its
+    fetch (driver.py:409-445)."""
+
+    def __init__(self, n_agents: int, n_params: int, n_scores: int):
+        self.A, self.P, self.S = n_agents, n_params, n_scores
+        self.width = n_params + 6 * n_agents + n_scores + 2 * n_agents * n_params
+
+    def pack(self, out, scores=None) -> torch.Tensor:
+        f64 = torch.float64
+        # Euclidean consensus norms (reference quirk)
+        norms = torch.linalg.norm(out.z[None, :].to(f64) - out.theta.to(f64), dim=1)
+        parts = [out.z, norms, out.nll, out.condition_number, out.log_det_term,
+                 out.quadratic_term, out.constant_term, *(() if scores is None else scores),
+                 out.theta, out.psi]
+        return torch.cat([p.reshape(-1).to(f64) for p in parts])
+
+    def unpack(self, row: np.ndarray):
+        """(z, sec (6, A): norms, nll, cond, logdet, quad, const; fold scores
+        (3, k) or None; theta (A, P); psi (A, P))."""
+        A, P, S = self.A, self.P, self.S
+        z = row[:P]
+        sec = row[P:P + 6 * A].reshape(6, A)
+        scores = row[P + 6 * A:P + 6 * A + S].reshape(3, -1) if S else None
+        state = row[P + 6 * A + S:]
+        return z, sec, scores, state[:A * P].reshape(A, P), state[A * P:].reshape(A, P)
+
+
+class _ChunkRunner:
+    """``k`` iterations of step + CV per dispatch; their packed rows land in
+    one (k, width) float64 buffer that the host fetches once.
+
+    ``iteration(theta, psi, j)`` runs iteration j of the chunk and returns
+    (step output, packed row). With ``capture`` (chain_iters > 1 on CUDA) the
+    first chunk runs one eager warm-up iteration on the capture stream (it
+    builds the kernels, uploads the gate and coefficient tables and creates
+    the solver handles, none of which a capture may do; its result is
+    discarded), then captures the chunk's k iterations in one CUDA graph;
+    every chunk is then one replay that reads the static theta, psi and
+    fold-index buffers and writes the row buffer. Without it the chunk runs
+    eagerly (one iteration a chunk, or a CPU device).
+
+    ``stats``: the graph's replays, the launches that one replay makes of
+    each hand kernel (the wrappers count Python calls, so they count the
+    capture and no replay), and the peak bytes allocated during capture
+    (the graph pool's peak)."""
+
+    def __init__(self, iteration, k: int, width: int, device: torch.device,
+                 capture: bool):
+        self.iteration, self.k, self.width = iteration, k, width
+        self.device, self.capture = device, capture
+        self.graph = None
+        self.stats: Dict = {"chain_iters": k, "captured": capture, "replays": 0}
+
+    def _body(self, theta, psi, rows):
+        for j in range(self.k):
+            out, row = self.iteration(theta, psi, j)
+            rows[j].copy_(row)
+            theta, psi = out.theta, out.psi
+        return theta, psi
+
+    def _capture(self, theta, psi) -> None:
+        dev = self.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.time()
+        with torch.cuda.stream(stream):
+            self.iteration(theta, psi, 0)   # warm-up, discarded
+        torch.cuda.synchronize(dev)
+        t1 = time.time()
+        self.theta_in, self.psi_in = theta.clone(), psi.clone()
+        self.rows = torch.empty((self.k, self.width), dtype=torch.float64, device=dev)
+        before = cuda_circuit.launch_counts()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.theta_out, self.psi_out = self._body(self.theta_in, self.psi_in, self.rows)
+        torch.cuda.synchronize(dev)
+        after = cuda_circuit.launch_counts()
+        self.stats.update(
+            warmup_s=t1 - t0, capture_s=time.time() - t1,
+            launches_per_replay={n: after[n] - before[n] for n in after if after[n] != before[n]},
+            graph_pool_peak_bytes=torch.cuda.max_memory_allocated(dev) - base)
+
+    def run(self, theta, psi):
+        """(rows (k, width) host float64, theta and psi after the k-th row)."""
+        if not self.capture:
+            rows = torch.empty((self.k, self.width), dtype=torch.float64, device=self.device)
+            theta, psi = self._body(theta, psi, rows)
+            return rows.cpu().numpy(), theta, psi
+        if self.graph is None:
+            self._capture(theta, psi)
+        self.theta_in.copy_(theta)
+        self.psi_in.copy_(psi)
+        self.graph.replay()
+        self.stats["replays"] += 1
+        rows = self.rows.cpu().numpy()   # the chunk's one fetch
+        return rows, self.theta_out.clone(), self.psi_out.clone()
 
 
 def _to_np(t: torch.Tensor) -> np.ndarray:
@@ -165,18 +388,29 @@ def train(
     """Run the distributed Riemannian-ADMM optimization on ``device``."""
     device = torch.device(device)
     config.set_precision_policy()
+    _check_unported(cfg)
+    cfg = dataclasses.replace(cfg, gp_dtype=config.resolve_dtype_mode(cfg.gp_dtype),
+                              cv_dtype=config.resolve_dtype_mode(cfg.cv_dtype))
     n_agents = len(agent_data_splits)
+    P = spec.num_parameters
     log = print if cfg.verbose else (lambda *a, **k: None)
 
-    _warn_device_cond_floor(cfg.compute_cond, device)
+    cond_mode = resolve_cond_mode(cfg, device)
+    chain_k = max(1, int(cfg.chain_iters))
+    if cond_mode == "device" and chain_k > 1 and device.type == "cuda":
+        raise ValueError(
+            "cond_mode='device' with chain_iters > 1 on CUDA: torch's eigvalsh checks "
+            "its info on the host, which a CUDA graph cannot capture; use "
+            "cond_mode='auto'/'host' (the exact float64 backfill) or chain_iters=1")
+    _warn_device_cond_floor(cond_mode, device)
+    cond_pending: List[Tuple[int, np.ndarray]] = []  # (history index, z row)
 
     batch = make_agent_batch(agent_data_splits, device)
-    step = make_admm_step(
-        spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
-        shift_value=cfg.shift_value, parity_round=cfg.parity_round,
-        compute_cond=cfg.compute_cond, psd_fallback=cfg.psd_fallback,
-        grad_method=cfg.grad_method,
-    )
+    step_kw = dict(rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
+                   shift_value=cfg.shift_value, parity_round=cfg.parity_round,
+                   compute_cond=cond_mode == "device", gp_dtype=cfg.gp_dtype,
+                   grad_method=cfg.grad_method)
+    step = make_admm_step(spec, psd_fallback=cfg.psd_fallback, **step_kw)
 
     if resume_from:
         ck = load_checkpoint(resume_from)
@@ -186,8 +420,7 @@ def train(
         patience_counter = ck["patience_counter"]
         log(f"Resumed from {resume_from} at iteration {start_iter}")
     else:
-        theta, psi, z = init_admm_state(n_agents, spec.num_parameters, cfg.seed,
-                                        cfg.rho, cfg.parity_round)
+        theta, psi, z = init_admm_state(n_agents, P, cfg.seed, cfg.rho, cfg.parity_round)
         start_iter = 0
         cv_best, z_best_cv, patience_counter = float("inf"), None, 0
     theta = torch.as_tensor(theta, dtype=torch.float64, device=device)
@@ -204,6 +437,20 @@ def train(
             f"of {len(X_train)} training rows")
     X_t = torch.as_tensor(X_cv, device=device)
     Y_t = torch.as_tensor(Y_cv, device=device)
+    folds = FoldIndexBuffers(len(X_cv), cfg.cv_folds, chain_k, device) if cfg.run_cv else None
+    layout = _RowLayout(n_agents, P, 3 * cfg.cv_folds if cfg.run_cv else 0)
+
+    def make_iteration(step_fn):
+        """Step + CV pass ``j`` of the fold buffer -> (step output, row)."""
+        def iteration(theta, psi, j):
+            out = step_fn(theta, psi, batch)
+            scores = None
+            if cfg.run_cv:
+                scores = cv_fold_scores_impl(spec, X_t, Y_t, out.z, *folds.folds(j),
+                                             noise_std=float(cfg.noise_std),
+                                             cv_dtype=cfg.cv_dtype)
+            return out, layout.pack(out, scores)
+        return iteration
 
     nll_history: List[Dict] = []
     cv_history: List[Dict] = []
@@ -212,32 +459,25 @@ def train(
     converged_by = "max_iter"
     z_prev = np.asarray(z, np.float64)
 
-    it = start_iter
-    t0 = time.time()
-    while True:
-        it += 1
-        it_start = time.time()
-        out = step(theta, psi, batch)
-        if cfg.run_cv:
-            fold_scores = [_to_np(s) for s in cv_fold_scores_impl(
-                spec, X_t, Y_t, out.z,
-                *kfold_pad_indices(len(X_cv), cfg.cv_folds, cfg.seed + it, device),
-                noise_std=float(cfg.noise_std),
-            )]
-        theta, psi = out.theta, out.psi
-        z_row = _to_np(out.z)
-        # Euclidean consensus norms (reference quirk)
-        theta_z_norms = _to_np(torch.linalg.norm(out.z[None, :] - theta, dim=1))
-        nll = _to_np(out.nll)
-        conds = _to_np(out.condition_number)
-        lds, quads, consts = (_to_np(out.log_det_term), _to_np(out.quadratic_term),
-                              _to_np(out.constant_term))
-        it_time = time.time() - it_start
+    def record_iteration(it, z_row, sec, fold_scores, it_time, th_row, ps_row,
+                         solver=None):
+        """All host bookkeeping of one completed iteration, the same for
+        both dispatch modes (dqgp_tpu/driver.py:597-777); returns the stop
+        reason ('consensus' | 'cv_patience' | 'max_iter') or None."""
+        nonlocal cv_best, z_best_cv, patience_counter, z_prev, z_best_gt, error_best
 
+        theta_z_norms, nll, conds, lds, quads, consts = sec
+        if cond_mode == "host":
+            if cfg.verbose and cfg.verbose_agents:
+                # the per-agent report below prints this row's values now
+                conds = host_condition_numbers(spec, agent_data_splits, z_row[None, :],
+                                               chunk=1, device=device)[0]
+            else:
+                cond_pending.append((len(nll_history), np.array(z_row, copy=True)))
         valid = nll[np.isfinite(nll)]
         nll_history.append({
             "iteration": it,
-            "solver": "float64",
+            "solver": solver if solver is not None else cfg.gp_dtype,
             "iter_time": float(it_time),
             "agent_losses": nll.tolist(),
             "condition_numbers": conds.tolist(),
@@ -258,20 +498,25 @@ def train(
 
         # --- per-iteration CV model selection (main.py:2645-2716) ---------
         if cfg.run_cv:
-            if np.all(np.isfinite(fold_scores[0])):
-                cv = aggregate_cv_scores(*fold_scores, cfg.cv_folds)
-                cv_solver = "float64"
-            else:
+            cv_dtype_iter, cv_rescue = cfg.cv_dtype, False
+            if not np.all(np.isfinite(fold_scores[0])):
                 # the fold batch flags failed factorizations as NaN; the
-                # reference's f64 CV would have rescued them — re-score
-                # through the full fallback chain
+                # reference's f64 CV would have rescued them — re-score in
+                # float64, through the full fallback chain where the flagged
+                # pass was float64 already (dqgp_tpu/driver.py:664-680)
                 log("  CV fold solve flagged fold(s); re-scoring this "
                     "iteration's CV in float64")
+                fold_scores = None
+                cv_rescue = cfg.cv_dtype == "float64"
+                cv_dtype_iter = "float64"
+            if fold_scores is not None:
+                cv = aggregate_cv_scores(*fold_scores, cfg.cv_folds)
+                cv_solver = cfg.cv_dtype
+            else:
                 cv = k_fold_cross_validation_consensus(
-                    spec, X_t, Y_t, z_row, cfg.noise_std,
-                    k_folds=cfg.cv_folds, random_seed=cfg.seed + it, rescue=True,
-                )
-                cv_solver = "float64-rescue"
+                    spec, X_t, Y_t, z_row, cfg.noise_std, k_folds=cfg.cv_folds,
+                    random_seed=cfg.seed + it, cv_dtype=cv_dtype_iter, rescue=cv_rescue)
+                cv_solver = "float64-rescue" if cv_rescue else cv_dtype_iter
             cv_score = cv["mean_nlpd"]
             if cv_score < cv_best:
                 cv_best = cv_score
@@ -294,7 +539,6 @@ def train(
         max_norm = float(theta_z_norms.max())
         z_change = float(np.linalg.norm(z_row - z_prev))
         z_prev = np.asarray(z_row, np.float64)
-        z = z_row
 
         if ground_truth_params is not None:
             param_error = M.np_distance(z_row, ground_truth_params)
@@ -309,23 +553,75 @@ def train(
             f"cv_nlpd={cvs:.4f}  max||z-th||={max_norm:.6f}  "
             f"dz={z_change:.6f}  {it_time:.3f}s"
         )
+        if cfg.verbose and cfg.verbose_agents:
+            for i in range(n_agents):
+                log(f"    Agent {i+1}: NLL={nll[i]:.6f} "
+                    f"[LogDet={lds[i]:.4f}, Quad={quads[i]:.4f}, "
+                    f"Const={consts[i]:.4f}]  cond={conds[i]:.2e} "
+                    f"({_cond_status(conds[i], cfg.compute_cond)})")
 
         if cfg.checkpoint_dir and it % cfg.checkpoint_every == 0:
             save_checkpoint(
                 os.path.join(cfg.checkpoint_dir, f"ckpt_{it:05d}.npz"),
-                it, _to_np(theta), _to_np(psi), z_row, cv_best, z_best_cv,
-                patience_counter,
+                it, th_row, ps_row, z_row, cv_best, z_best_cv, patience_counter,
             )
 
         # --- stopping (main.py:2767-2784) ---------------------------------
-        stop = None
         if np.all(theta_z_norms < cfg.tolerance):
-            stop = "consensus"
-        elif cfg.run_cv and patience_counter >= cfg.cv_patience:
-            stop = "cv_patience"
-        elif it >= cfg.max_iter:
-            stop = "max_iter"
+            return "consensus"
+        if cfg.run_cv and patience_counter >= cfg.cv_patience:
+            return "cv_patience"
+        if it >= cfg.max_iter:
+            return "max_iter"
+        return None
+
+    # chain_k > 1: the chunk's step flags failed factorizations (NaN), and
+    # the eager step (full fallback) re-runs a flagged row; one iteration a
+    # chunk runs the eager step itself
+    flags = chain_k > 1
+    chunk_step = make_admm_step(spec, psd_fallback=False, **step_kw) if flags else step
+    chunks = _ChunkRunner(make_iteration(chunk_step), chain_k, layout.width, device,
+                          capture=flags and device.type == "cuda")
+
+    it = start_iter
+    t0 = time.time()
+    while True:
+        chunk_start = time.time()
+        if cfg.run_cv:  # seed + iter (main.py:2665), one upload a chunk
+            folds.fill([cfg.seed + it + 1 + j for j in range(chain_k)])
+        rows, th_next, ps_next = chunks.run(theta, psi)
+        t_row = (time.time() - chunk_start) / chain_k
+        stop, redo = None, False
+        for j in range(chain_k):
+            z_row, sec, fold_scores, th_row, ps_row = layout.unpack(rows[j])
+            if flags and cfg.psd_fallback and not np.all(np.isfinite(sec[1])):
+                # A flagged agent poisons the later rows (NaN theta/psi):
+                # re-run THIS iteration's step with the full fallback from
+                # the pre-row state, then restart chunking from there. z and
+                # the row's CV scores stand (z reads only the old state).
+                redo = True
+                if j > 0:
+                    _, _, _, th_prev, ps_prev = layout.unpack(rows[j - 1])
+                    theta = torch.as_tensor(th_prev, device=device)
+                    psi = torch.as_tensor(ps_prev, device=device)
+                log("  non-finite agent NLL in the chunk's step; re-running this "
+                    "iteration with the eigh-pinv fallback")
+                out = step(theta, psi, batch)
+                kept = None if fold_scores is None else torch.as_tensor(fold_scores,
+                                                                         device=device)
+                z_row, sec, fold_scores, th_row, ps_row = layout.unpack(
+                    _to_np(layout.pack(out, kept)))
+                th_next, ps_next = out.theta, out.psi
+            it += 1
+            z = z_row
+            stop = record_iteration(it, z_row, sec, fold_scores, t_row, th_row, ps_row,
+                                    solver=f"{cfg.gp_dtype}-rescue" if redo else None)
+            if stop is not None or redo:
+                break
+        theta, psi = th_next, ps_next
         if stop is not None:
+            # a stop inside the chunk: the rows after it are discarded
+            theta, psi = th_row, ps_row
             converged_by = stop
             if stop in ("cv_patience", "max_iter") and z_best_cv is not None:
                 z = z_best_cv.copy()
@@ -335,12 +631,25 @@ def train(
     log(f"ADMM done ({converged_by}) after {it} iterations in {total_time:.2f}s "
         f"({total_time / max(it - start_iter, 1):.3f}s/iter)")
 
+    if cond_pending:
+        # host cond mode: one batched float64 pass over every recorded
+        # iteration, then backfill the history rows (reporting-only values;
+        # nothing in the training control flow reads them)
+        t_cond = time.time()
+        conds_all = host_condition_numbers(spec, agent_data_splits,
+                                           np.stack([zr for _, zr in cond_pending]),
+                                           device=device)
+        for (hist_idx, _), crow in zip(cond_pending, conds_all):
+            nll_history[hist_idx]["condition_numbers"] = crow.tolist()
+        log(f"condition numbers (exact f64, on {device.type}) for {len(cond_pending)} "
+            f"iterations in {time.time() - t_cond:.2f}s")
+
     return TrainResult(
         z=np.asarray(z),
         z_best_cv=(np.asarray(z_best_cv) if z_best_cv is not None else None),
         cv_best=cv_best,
-        theta=_to_np(theta),
-        psi=_to_np(psi),
+        theta=np.asarray(theta) if isinstance(theta, np.ndarray) else _to_np(theta),
+        psi=np.asarray(psi) if isinstance(psi, np.ndarray) else _to_np(psi),
         iterations=it,
         converged_by=converged_by,
         nll_history=nll_history,
@@ -349,4 +658,5 @@ def train(
         z_best_gt=(np.asarray(z_best_gt) if z_best_gt is not None else None),
         error_best=error_best,
         total_time=total_time,
+        chain_stats=chunks.stats if flags else None,
     )

@@ -64,11 +64,45 @@ def kfold_pad_indices_np(n: int, k: int, seed: int):
 
 def kfold_pad_indices(n: int, k: int, seed: int, device):
     """Tensor form of :func:`kfold_pad_indices_np`: int64 indices and
-    float64 masks on ``device``."""
+    float64 masks on ``device`` (four uploads; the driver fills
+    :class:`FoldIndexBuffers` instead)."""
     tr_i, tr_m, va_i, va_m = kfold_pad_indices_np(n, k, seed)
     idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
     msk = lambda a: torch.as_tensor(a, dtype=torch.float64, device=device)
     return idx(tr_i), msk(tr_m), idx(va_i), msk(va_m)
+
+
+class FoldIndexBuffers:
+    """Fold indices and masks of ``rows`` CV passes in one int64 device
+    buffer that the caller owns, filled from one packed host array per call
+    (one upload), as the JAX driver packs them (driver.py:553-562, 787-790).
+    A CUDA graph captured over :meth:`folds` views reads whatever the last
+    :meth:`fill` wrote. Fold shapes depend only on (n, k)."""
+
+    def __init__(self, n: int, k: int, rows: int, device):
+        tr_i, _, va_i, _ = kfold_pad_indices_np(n, k, 0)
+        self.n, self.k = n, k
+        self._shapes = (tr_i.shape, tr_i.shape, va_i.shape, va_i.shape)
+        self.packed = torch.zeros((rows, 2 * (tr_i.size + va_i.size)),
+                                  dtype=torch.int64, device=device)
+
+    def fill(self, seeds) -> None:
+        """Write the folds of ``seeds`` (one per row, at most ``rows``) into
+        the buffer's first rows, each row [train idx | train mask | val idx |
+        val mask] flattened: one host-to-device copy."""
+        packed = np.stack([np.concatenate([a.ravel() for a in kfold_pad_indices_np(
+            self.n, self.k, int(s))]) for s in seeds]).astype(np.int64)
+        self.packed[:len(packed)].copy_(torch.from_numpy(packed))
+
+    def folds(self, row: int):
+        """(train idx, train mask, val idx, val mask) of ``row``: views of
+        the buffer (the masks as int64 0/1; the fold scoring casts them)."""
+        out, at = [], 0
+        for shape in self._shapes:
+            size = shape[0] * shape[1]
+            out.append(self.packed[row, at:at + size].view(shape))
+            at += size
+        return tuple(out)
 
 
 def cv_fold_scores_impl(
@@ -82,20 +116,25 @@ def cv_fold_scores_impl(
     va_m: torch.Tensor,
     noise_std: float = 0.1,
     jitter: float = 1e-6,
+    cv_dtype: str = "float64",
     rescue: bool = False,
 ):
     """Per-fold (nlpd, r2, rmse), each (k,), with the folds as one batch.
 
     The folds use the ``direct-flag`` solver: a failed factorization scores
-    NaN rather than running the eigh-pinv rescue. ``rescue=True`` (the
+    NaN rather than running the eigh-pinv rescue, and nothing synchronises
+    with the host (a CUDA graph captures the pass). ``rescue=True`` (the
     driver's re-score of a flagged iteration) restores the full fallback
     chain, as the reference's predict path rescues a failed Cholesky with
-    an explicit inverse (main.py:1476-1482)."""
-    dtype = config.GP_DTYPE
+    an explicit inverse (main.py:1476-1482). ``cv_dtype`` "float32" keeps
+    the features, fold Grams and solves in float32, as the JAX package's
+    does (cv.py:107-128)."""
+    dtype = config.torch_dtype(cv_dtype)
     F = kernel_features(spec, X, theta)  # once per consensus vector
     solver = "direct" if rescue else "direct-flag"
-    # Features are upcast BEFORE the fold Grams (the GP side is float64).
-    F = F.to(torch.complex128 if spec.kernel_type == "fidelity" else dtype)
+    # In float64 the features are upcast BEFORE the fold Grams.
+    if dtype == torch.float64:
+        F = F.to(torch.complex128 if spec.kernel_type == "fidelity" else dtype)
 
     tr_mask = tr_m.to(dtype)
     va_mask = va_m.to(dtype)
@@ -175,13 +214,15 @@ def k_fold_cross_validation_consensus(
     k_folds: int = 5,
     random_seed: int = 42,
     jitter: float = 1e-6,
+    cv_dtype: str = "float64",
     rescue: bool = False,
 ) -> Dict:
     """Aggregate CV results with the reference's failure semantics.
 
     Runs on the device of ``X_train``. A fold flagged non-finite by the
-    ``direct-flag`` pass triggers a float64 re-score with the full fallback
-    chain (``rescue=True``); ``rescue=True`` skips the flag pass."""
+    ``direct-flag`` pass at ``cv_dtype`` triggers a float64 re-score with
+    the full fallback chain (``rescue=True``); ``rescue=True`` skips the
+    flag pass (cv.py:211-257 of the JAX package)."""
     dev = X_train.device
     folds = kfold_pad_indices(int(X_train.shape[0]), k_folds, random_seed, dev)
     args = (spec, X_train, Y_train,
@@ -190,7 +231,7 @@ def k_fold_cross_validation_consensus(
     kw = dict(noise_std=float(noise_std), jitter=float(jitter))
     nlpds = None
     if not rescue:
-        nlpds, r2s, rmses = cv_fold_scores_impl(*args, **kw)
+        nlpds, r2s, rmses = cv_fold_scores_impl(*args, cv_dtype=cv_dtype, **kw)
     if nlpds is None or not bool(torch.all(torch.isfinite(nlpds))):
-        nlpds, r2s, rmses = cv_fold_scores_impl(*args, rescue=True, **kw)
+        nlpds, r2s, rmses = cv_fold_scores_impl(*args, cv_dtype="float64", rescue=True, **kw)
     return aggregate_cv_scores(nlpds, r2s, rmses, k_folds)

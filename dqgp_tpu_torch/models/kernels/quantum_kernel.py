@@ -31,6 +31,7 @@ from ... import config
 from ...manifold import PERIOD
 from ...ops.circuit import Circuit
 from ...ops.cuda_circuit import (
+    CircuitFunction,
     pauli_features_from_angles,
     pauli_features_from_angles_fused,
     states_from_angles,
@@ -107,31 +108,44 @@ def _measurement_selector(spec: QuantumKernelSpec) -> Tuple[str, ...]:
     return tuple(p.upper() for p in m)
 
 
+def _run(kernel, circuit: Circuit, angles: torch.Tensor, output: str) -> torch.Tensor:
+    """``kernel(circuit, angles)``; where the angles need a gradient, through
+    ``CircuitFunction``, whose backward is the hand-written adjoint kernel
+    (its plain version on the CPU)."""
+    if angles.requires_grad and torch.is_grad_enabled():
+        return CircuitFunction.apply(angles, circuit, kernel, output)
+    return kernel(circuit, angles)
+
+
 def features_from_angles(spec: QuantumKernelSpec, angles: torch.Tensor) -> torch.Tensor:
     """Features from a precomputed (B, G) angle matrix.
 
     (B, 2^n) complex states for fidelity, (B, D) real for projected.
     Precision follows ``angles.dtype``: float64 angles run the complex128
     path. Mirrors ``dqgp_tpu/models/kernels/quantum_kernel.py``'s dispatch,
-    with the hand-written kernels in place of the Pallas ones."""
+    with the hand-written kernels in place of the Pallas ones. Angles that
+    need a gradient (the "autodiff" gradient) take the same kernels forward
+    and the adjoint kernel ``circuit_vjp`` backward."""
     n = spec.circuit.num_qubits
     f64 = angles.dtype == torch.float64
     m = _measurement_selector(spec) if spec.kernel_type == "projected" else None
 
     if m is not None and all(len(s) == 1 for s in m):
         if not f64 and config.fusion_enabled(n, "features"):
-            full = pauli_features_from_angles_fused(spec.circuit, angles)
+            kernel = pauli_features_from_angles_fused
         else:
-            full = pauli_features_from_angles(spec.circuit, angles)
+            kernel = pauli_features_from_angles
+        full = _run(kernel, spec.circuit, angles, "features")
         blocks = {"X": full[:, :n], "Y": full[:, n:2 * n], "Z": full[:, 2 * n:]}
         return torch.cat([blocks[c] for c in m], dim=-1)
 
     # The fused kernel is float32-only, as in the JAX package, where float64
     # always takes the unfused engine.
     if not f64 and config.fusion_enabled(n, "states"):
-        states = states_from_angles_fused(spec.circuit, angles)
+        kernel = states_from_angles_fused
     else:
-        states = states_from_angles(spec.circuit, angles)
+        kernel = states_from_angles
+    states = _run(kernel, spec.circuit, angles, "states")
     if spec.kernel_type == "fidelity":
         return states
     cols = [pauli_string_expectation(states, p) for p in m]
@@ -142,6 +156,19 @@ def kernel_features(spec: QuantumKernelSpec, X: torch.Tensor, theta: torch.Tenso
                     dtype=torch.float32) -> torch.Tensor:
     """Per-sample features of X (N, D) at parameters theta (P,)."""
     return features_from_angles(spec, angle_matrix(spec.circuit, X, theta, dtype))
+
+
+def grams_at_rows(spec: QuantumKernelSpec, X: torch.Tensor,
+                  thetas: torch.Tensor) -> torch.Tensor:
+    """Symmetric float64 Grams (T, N, N) of X (N, D) at each of T parameter
+    rows (T, P), through the complex128 pipeline: the T*N float64 angle rows
+    go through ONE feature call (K1's or K2's float64 instantiation on the
+    card), then the Grams are formed in float64. The driver's host condition
+    numbers run on it (``dqgp_tpu/driver.py:248-268`` forms the same Grams
+    one parameter row at a time under vmap)."""
+    angles = angle_matrix(spec.circuit, X.to(torch.float64)[None], thetas, torch.float64)
+    flat = features_from_angles(spec, angles.reshape(-1, angles.shape[-1]))
+    return gram_from_features(spec, flat.reshape(*angles.shape[:-1], flat.shape[-1]))
 
 
 def regularize_gram(K: torch.Tensor, method: Optional[str]) -> torch.Tensor:

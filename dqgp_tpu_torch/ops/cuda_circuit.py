@@ -20,6 +20,12 @@
 * ``states_from_angles_fused`` (K4, ``csrc/states_fused.cu``) — port of
   ``make_pallas_states_fused_fn``: the states through the fused program,
   float32 only; ``warp_program.cuh``'s body, then the write-out.
+* ``circuit_vjp`` (``csrc/circuit_vjp.cu``) — the backward of K1 and K2:
+  the angles' gradient (B, G) from the cotangent of the features or of the
+  states, float32, by adjoint differentiation (the state in shared memory,
+  as in ``statevector.cuh``). The JAX package has no counterpart kernel: its
+  Pallas kernels have no VJP. ``CircuitFunction`` makes the forward wrappers
+  differentiable with it.
 
 K1 (float32) and K3 take qubit q as bit q of the state's index in registers
 and lanes; the states kernels (K2 float32, K4) put the low qubits on the
@@ -29,7 +35,8 @@ here carry the map.
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc at first
 use) and adds one to its launch count: ``.launches`` for the float32
-instantiation and ``.launches_f64`` for the float64 one. On a CPU tensor it
+instantiation and ``.launches_f64`` for the float64 one (``circuit_vjp``:
+``.launches_features`` and ``.launches_states``). On a CPU tensor it
 runs the kernel's plain PyTorch version (the ``*_reference`` functions) and
 counts nothing. There is no fallback: on the card a wrapper launches or
 raises.
@@ -55,7 +62,8 @@ SOURCE = "pauli_features.cu"        # K1
 STATES_SOURCE = "states.cu"         # K2
 FUSED_SOURCE = "states_fused.cu"    # K4
 FEATURES_FUSED_SOURCE = "pauli_features_fused.cu"  # K3
-SOURCES = (SOURCE, STATES_SOURCE, FEATURES_FUSED_SOURCE, FUSED_SOURCE)
+VJP_SOURCE = "circuit_vjp.cu"       # the backward of K1 and K2
+SOURCES = (SOURCE, STATES_SOURCE, FEATURES_FUSED_SOURCE, FUSED_SOURCE, VJP_SOURCE)
 MAX_QUBITS = 10
 _SMEM_BUDGET = 200 * 1024  # bytes a block may take (the card allows 227 KB)
 _WARP_THREADS = 256             # the warp kernels' launch bound
@@ -76,6 +84,7 @@ _SIGNATURES = {
                    "dqgp_states_fused_blocks_per_sm": _OCCUPANCY_ARGS},
     FEATURES_FUSED_SOURCE: {"dqgp_pauli_features_fused": _FUSED_ARGS,
                             "dqgp_pauli_features_fused_blocks_per_sm": _OCCUPANCY_ARGS},
+    VJP_SOURCE: {"dqgp_circuit_vjp": [_vp] * 4 + [_i32] * 6 + [_i64, _vp]},
 }
 # each warp kernel's (source, launch function, occupancy function)
 _WARP_KERNELS = {
@@ -513,12 +522,99 @@ def pauli_features_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> 
     return out
 
 
+# ---------------------------------------------------------------------------
+# The backward of K1 and K2
+# ---------------------------------------------------------------------------
+
+VJP_OUTPUTS = ("features", "states")
+
+
+def vjp_launch_config(num_qubits: int, num_gates: int) -> tuple[int, int, int]:
+    """(threads per block, padded angle-row stride, dynamic smem bytes) of
+    the adjoint kernel: a thread's two float32 states as [amplitude][thread]
+    re and im planes, and its angle row at an odd stride. Threads per block
+    halve from 128 until that fits."""
+    dim = 1 << num_qubits
+    gstride = num_gates | 1
+
+    def smem(tpb):
+        return tpb * 4 * (4 * dim + gstride)
+
+    tpb = _threads_per_block(smem)
+    return tpb, gstride, smem(tpb)
+
+
+def circuit_vjp_reference(circuit: Circuit, angles: torch.Tensor, cotangent: torch.Tensor,
+                          output: str) -> torch.Tensor:
+    """The adjoint kernel's plain PyTorch version: ``torch.autograd`` through
+    K1's (``output="features"``) or K2's (``"states"``) plain version."""
+    fn = pauli_features_reference if output == "features" else states_reference
+    with torch.enable_grad():
+        a = angles.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(fn(circuit, a), a, cotangent)
+    return grad
+
+
+def circuit_vjp(circuit: Circuit, angles: torch.Tensor, cotangent: torch.Tensor,
+                output: str) -> torch.Tensor:
+    """d<cotangent, f(angles)>/d angles (B, G), f the Pauli features (K1,
+    cotangent (B, 3n) real) or the states (K2, cotangent (B, 2^n) complex,
+    torch's convention for the gradient of a real loss), float32."""
+    if output not in VJP_OUTPUTS:
+        raise ValueError(f"output must be one of {VJP_OUTPUTS}, got {output!r}")
+    if not _is_cuda(angles):
+        return circuit_vjp_reference(circuit, angles, cotangent, output)
+    _check_angles(circuit, angles, "adjoint", dtypes=(torch.float32,))
+    n = circuit.num_qubits
+    B, G = angles.shape
+    want = (B, 3 * n) if output == "features" else (B, circuit.dim)
+    dtype = torch.float32 if output == "features" else torch.complex64
+    if tuple(cotangent.shape) != want or cotangent.dtype != dtype:
+        raise ValueError(f"the {output} cotangent must be {want} {dtype}, got "
+                         f"{tuple(cotangent.shape)} {cotangent.dtype}")
+    grad = torch.empty_like(angles)
+    if B == 0:
+        return grad
+    cot = cotangent.contiguous()
+    if output == "states":
+        cot = torch.view_as_real(cot)
+    tpb, gstride, smem = vjp_launch_config(n, G)
+    _launch(VJP_SOURCE, "dqgp_circuit_vjp", angles.device, angles.data_ptr(),
+            _gate_table(circuit, angles.device).data_ptr(), cot.data_ptr(), grad.data_ptr(),
+            B, G, n, VJP_OUTPUTS.index(output), tpb, gstride, smem)
+    if output == "features":
+        circuit_vjp.launches_features += 1
+    else:
+        circuit_vjp.launches_states += 1
+    return grad
+
+
+class CircuitFunction(torch.autograd.Function):
+    """``forward(circuit, angles)`` (a K1-K4 wrapper) made differentiable:
+    its backward is ``circuit_vjp`` of its ``output`` ("features" for K1 and
+    K3, "states" for K2 and K4: the fused programs compute the same
+    functions)."""
+
+    @staticmethod
+    def forward(ctx, angles, circuit, forward, output):
+        ctx.circuit, ctx.output = circuit, output
+        ctx.save_for_backward(angles)
+        return forward(circuit, angles)
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        (angles,) = ctx.saved_tensors
+        return circuit_vjp(ctx.circuit, angles, cotangent, ctx.output), None, None, None
+
+
 pauli_features_from_angles.launches = 0
 pauli_features_from_angles.launches_f64 = 0
 states_from_angles.launches = 0
 states_from_angles.launches_f64 = 0
 states_from_angles_fused.launches = 0
 pauli_features_from_angles_fused.launches = 0
+circuit_vjp.launches_features = 0
+circuit_vjp.launches_states = 0
 
 _COUNTERS = {
     "K1": (pauli_features_from_angles, "launches"),
@@ -527,6 +623,8 @@ _COUNTERS = {
     "K2_f64": (states_from_angles, "launches_f64"),
     "K3": (pauli_features_from_angles_fused, "launches"),
     "K4": (states_from_angles_fused, "launches"),
+    "K1_vjp": (circuit_vjp, "launches_features"),
+    "K2_vjp": (circuit_vjp, "launches_states"),
 }
 
 

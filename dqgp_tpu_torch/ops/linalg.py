@@ -47,8 +47,11 @@ def solve_psd_with_fallback(C: torch.Tensor, y: torch.Tensor, fallback: bool = T
     """C^{-1}, C^{-1} y and logdet(C) via Cholesky, eigh-pinv on failure.
 
     ``fallback=False`` flags a failed factorization with NaN outputs and
-    ``chol_ok=False`` instead (the callers' "flag" semantics).
-    ``need_inverse=False`` skips the explicit inverse on the Cholesky path."""
+    ``chol_ok=False`` instead (the callers' "flag" semantics); that path
+    neither synchronises with the host nor uploads anything, so a CUDA graph
+    can capture it. The rescue reads ``failed.any()`` on the host and runs
+    only outside a graph. ``need_inverse=False`` skips the explicit inverse
+    on the Cholesky path."""
     n = C.shape[-1]
     eye = torch.eye(n, dtype=C.dtype, device=C.device)
     L, info = torch.linalg.cholesky_ex(C)
@@ -72,10 +75,10 @@ def solve_psd_with_fallback(C: torch.Tensor, y: torch.Tensor, fallback: bool = T
             C_inv, C_inv_y, logdet = C_inv.clone(), C_inv_y.clone(), logdet.clone()
             C_inv[failed], C_inv_y[failed], logdet[failed] = Ci, Ciy, ld
     else:
-        nan = torch.tensor(float("nan"), dtype=C.dtype, device=C.device)
-        C_inv = torch.where(failed[..., None, None], nan, C_inv)
-        C_inv_y = torch.where(failed[..., None], nan, C_inv_y)
-        logdet = torch.where(failed, nan, logdet)
+        nan = float("nan")
+        C_inv = torch.where(failed[..., None, None], C_inv.new_full((), nan), C_inv)
+        C_inv_y = torch.where(failed[..., None], C_inv_y.new_full((), nan), C_inv_y)
+        logdet = torch.where(failed, logdet.new_full((), nan), logdet)
     return SolveResult(C_inv, C_inv_y, logdet, chol_ok, L_safe)
 
 
@@ -98,9 +101,15 @@ def get_psd_solver(solver: str):
 
 def condition_number(C: torch.Tensor) -> torch.Tensor:
     """2-norm condition number from a float64 ``eigvalsh`` (|eigenvalues| are
-    the singular values of the symmetric Grams this is applied to)."""
-    w = torch.abs(torch.linalg.eigvalsh(C.to(torch.float64)))
-    return (torch.amax(w, dim=-1) / torch.amin(w, dim=-1)).to(C.dtype)
+    the singular values of the symmetric Grams this is applied to). A
+    non-finite C (a flagged agent's NaN state) reads NaN, as XLA's eigvalsh
+    returns it; torch's would raise."""
+    C64 = C.to(torch.float64)
+    finite = torch.isfinite(C64).all(dim=-1).all(dim=-1)
+    eye = torch.eye(C.shape[-1], dtype=torch.float64, device=C.device)
+    w = torch.abs(torch.linalg.eigvalsh(torch.where(finite[..., None, None], C64, eye)))
+    cond = torch.amax(w, dim=-1) / torch.amin(w, dim=-1)
+    return torch.where(finite, cond, cond.new_full((), float("nan"))).to(C.dtype)
 
 
 def masked_identity_pad(K: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

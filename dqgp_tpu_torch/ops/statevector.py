@@ -12,6 +12,8 @@ Qubit 0 is the least-significant bit of the state index.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .circuit import (
@@ -22,7 +24,10 @@ from .circuit import (
 _SQRT1_2 = 0.7071067811865476
 
 
-def _static_tensors(circuit: Circuit, device) -> dict:
+@functools.lru_cache(maxsize=64)
+def _static_tensors(circuit: Circuit, device: torch.device) -> dict:
+    """The circuit's coefficient arrays on ``device``, uploaded once: a CUDA
+    graph cannot capture the upload, and a replayed step must not repeat it."""
     arr = {k: torch.as_tensor(v, device=device)
            for k, v in circuit.static_arrays().items()}
     arr["pidx"], arr["fidx"] = arr["pidx"].long(), arr["fidx"].long()

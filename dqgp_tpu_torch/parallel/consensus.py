@@ -19,8 +19,13 @@ Two ways to form the gradient (``grad_method``), as in the JAX package:
   2 A N rows), differences them in float32, upcasts, and contracts them with
   the solve bracket at once: O(A N^2) live memory whatever P is.
 
-Both give the same gradient up to the order of the final sums. The JAX
-package's "autodiff" gradient is not ported.
+Both give the same gradient up to the order of the final sums. The third,
+``"autodiff"``, is the exact gradient of the NLL at wrap(z) by
+``torch.autograd``: the Gram's features go through the same kernels
+forward and through the hand-written adjoint kernel (``circuit_vjp``)
+backward, the rest (Gram, Cholesky solve) through PyTorch's own backward.
+The JAX package differentiates its XLA engine, since its Pallas kernels
+have no VJP.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 
 from .. import config
 from .. import manifold as M
-from ..models.gp.posterior import masked_nll_and_grad, masked_nll_core
+from ..models.gp.posterior import NLLResult, masked_nll_and_grad, masked_nll_core
 from ..models.kernels.quantum_kernel import (
     QuantumKernelSpec,
     features_from_angles,
@@ -42,7 +47,7 @@ from ..models.kernels.quantum_kernel import (
 )
 from ..ops.statevector import angle_matrix
 
-GRAD_METHODS = ("central", "streamed")
+GRAD_METHODS = ("central", "streamed", "autodiff")
 
 
 class AgentBatch(NamedTuple):
@@ -124,9 +129,34 @@ def streamed_nll_and_grad(spec: QuantumKernelSpec, batch: AgentBatch,
     return res._replace(grad=torch.stack(grads, dim=-1))
 
 
-def admm_iteration(
+def autodiff_nll_and_grad(spec: QuantumKernelSpec, batch: AgentBatch,
+                          z_manifold: torch.Tensor, noise_std: float, *,
+                          dtype=torch.float64, compute_cond: bool = True,
+                          fallback: bool = True):
+    """The masked NLL of every agent at the wrapped consensus vector and its
+    exact gradient by ``torch.autograd`` (dqgp_tpu/parallel/consensus.py:
+    145-160): the loss is over t in the GP dtype, the Gram is built from
+    t.to(float32) and upcast, and the NLL comes from ``masked_nll_and_grad``
+    with an empty dK. The features run the kernels of the other gradients
+    forward and the adjoint kernel backward."""
+    A, P = batch.X.shape[0], z_manifold.shape[0]
+    with torch.enable_grad():
+        t = z_manifold.to(dtype).expand(A, P).clone().requires_grad_(True)
+        angles = angle_matrix(spec.circuit, batch.X, t.to(torch.float32),
+                              torch.float32)                            # (A, N, G)
+        flat = features_from_angles(spec, angles.reshape(-1, angles.shape[-1]))
+        K = gram_from_features(spec, flat.reshape(*angles.shape[:-1], flat.shape[-1]))
+        Kt = K.to(dtype)
+        res = masked_nll_and_grad(Kt, Kt.new_zeros((A, 0) + Kt.shape[1:]),
+                                  batch.Y.to(dtype), batch.mask.to(dtype), noise_std,
+                                  compute_cond=compute_cond, fallback=fallback)
+        (grad,) = torch.autograd.grad(res.nll.sum(), t)
+    return NLLResult(*(v.detach() for v in res._replace(grad=grad)))
+
+
+def agent_updates(
     spec: QuantumKernelSpec,
-    theta: torch.Tensor,
+    z: torch.Tensor,
     psi: torch.Tensor,
     batch: AgentBatch,
     *,
@@ -136,29 +166,25 @@ def admm_iteration(
     shift_value: float = float(np.pi / 8),
     parity_round: bool = True,
     compute_cond: bool = True,
+    gp_dtype: str = "float64",
     psd_fallback: bool = True,
     grad_method: str = "central",
-) -> AgentStepOut:
-    """One bulk-synchronous ADMM round over all agents (theta, psi: (A, P));
-    ``grad_method`` is "central" or "streamed" (see the module docstring)."""
+):
+    """Every agent's local round at the consensus vector z (P,): its Gram
+    at wrap(z), the masked NLL and gradient, the proximal theta and dual psi
+    updates (agent_riemannian.py:314-491; the JAX package's ``_agent_local``
+    over the agent batch). Returns (theta, psi, NLLResult)."""
     if grad_method not in GRAD_METHODS:
-        raise NotImplementedError(
-            f"grad_method {grad_method!r}: the port has {GRAD_METHODS} (the JAX "
-            f"package's 'autodiff' gradient is not ported)")
-    dtype = config.GP_DTYPE
-
-    xi = theta + psi / rho
-    phase = 2.0 * math.pi * xi / M.PERIOD
-    z = M.circular_mean_from_sums(torch.sum(torch.cos(phase), dim=0),
-                                  torch.sum(torch.sin(phase), dim=0))
-    if parity_round:
-        z = M.round4(z)
-
+        raise NotImplementedError(f"grad_method {grad_method!r}: the port has {GRAD_METHODS}")
+    dtype = config.torch_dtype(gp_dtype)
     # The shift batch is built and wrapped in float32, as the reference's
     # kernel path sees it; the f32 Grams are upcast only afterwards.
     z_manifold = M.wrap(z)
     z32 = z_manifold.to(torch.float32)
-    if grad_method == "streamed":
+    if grad_method == "autodiff":
+        res = autodiff_nll_and_grad(spec, batch, z_manifold, noise_std, dtype=dtype,
+                                    compute_cond=compute_cond, fallback=psd_fallback)
+    elif grad_method == "streamed":
         res = streamed_nll_and_grad(spec, batch, z32, shift_value, noise_std,
                                     dtype=dtype, compute_cond=compute_cond,
                                     fallback=psd_fallback)
@@ -173,6 +199,31 @@ def admm_iteration(
     if parity_round:
         theta_new = M.round4(theta_new)
         psi_new = M.round4(psi_new)
+    return theta_new, psi_new, res
+
+
+def admm_iteration(
+    spec: QuantumKernelSpec,
+    theta: torch.Tensor,
+    psi: torch.Tensor,
+    batch: AgentBatch,
+    *,
+    rho: float,
+    parity_round: bool = True,
+    **kwargs,
+) -> AgentStepOut:
+    """One bulk-synchronous ADMM round over all agents (theta, psi: (A, P)):
+    the consensus z from the old state, then ``agent_updates`` (its keyword
+    arguments: L, noise_std, grad_method "central", "streamed" or
+    "autodiff", gp_dtype, ...; see the module docstring)."""
+    xi = theta + psi / rho
+    phase = 2.0 * math.pi * xi / M.PERIOD
+    z = M.circular_mean_from_sums(torch.sum(torch.cos(phase), dim=0),
+                                  torch.sum(torch.sin(phase), dim=0))
+    if parity_round:
+        z = M.round4(z)
+    theta_new, psi_new, res = agent_updates(spec, z, psi, batch, rho=rho,
+                                            parity_round=parity_round, **kwargs)
     return AgentStepOut(theta_new, psi_new, z, res.nll, res.log_det_term,
                         res.quadratic_term, res.constant_term,
                         res.condition_number)

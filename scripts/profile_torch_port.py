@@ -4,6 +4,8 @@
     python scripts/profile_torch_port.py                # every cell
     python scripts/profile_torch_port.py --cell fidelity --iters 5
     python scripts/profile_torch_port.py --cell fidelity --fusion on
+    python scripts/profile_torch_port.py --cell northstar --chain 5
+    python scripts/profile_torch_port.py --cond device   # cond in the step
 
 For each cell — ``northstar`` (chip_smoke.py phase 4's problem),
 ``fidelity`` (phase 7's, BASELINE config #5) and ``config7`` (phase 11b's,
@@ -16,12 +18,19 @@ host wall time, the device time summed over kernels, the device's idle
 share (1 - device / wall), the kernel count, and the device time by kernel
 group with its share of the device time. ``--fusion`` sets the fusion
 switch (``config.use_fusion``; "on" puts the fused states kernel K4 in K2's
-place in the fidelity cell). Needs a CUDA device; imports nothing of JAX.
+place in the fidelity cell). ``--cond`` "host" (the default) runs the step
+as ``driver.train`` runs it on the card, without condition numbers (they
+are backfilled after training); "device" puts them in the step.
+``--chain K`` profiles the driver's chained dispatch instead: the step and
+CV pass of K iterations captured in one CUDA graph after a warm-up
+iteration, ``--iters`` replays profiled, the numbers given per iteration.
+Needs a CUDA device; imports nothing of JAX.
 """
 
 import argparse
 import os
 import re
+import subprocess
 import sys
 import time
 
@@ -35,9 +44,9 @@ import chip_smoke as cs  # noqa: E402
 
 CELLS = ("northstar", "fidelity", "config7")
 GROUPS = (  # first match wins
-    ("hand kernels (K1-K4)",
+    ("hand kernels (K1-K4, adjoint)",
      r"warp_pauli_features_kernel|pauli_features_kernel_f64|warp_states_kernel"
-     r"|states_kernel_f64|warp_features_kernel|warp_states_fused_kernel"),
+     r"|states_kernel_f64|warp_features_kernel|warp_states_fused_kernel|circuit_vjp_kernel"),
     ("eigh (condition numbers)", r"syev|sytrd|stedc|ormtr|steqr|sterf|latrd"),
     ("triangular solves", r"trsm|trsv|trtri"),
     ("Cholesky", r"potrf|potrs"),
@@ -66,29 +75,45 @@ def _problem(cell, dev):
     return spec, X_tr, Y_tr, splits, cs.FID_SEED
 
 
-def profile(cell, iters, dev):
+def profile(cell, iters, dev, cond="host", chain=1):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    from dqgp_tpu_torch.driver import TrainConfig, init_admm_state
-    from dqgp_tpu_torch.models.gp.cv import cv_fold_scores_impl, kfold_pad_indices
+    from dqgp_tpu_torch.driver import TrainConfig, _ChunkRunner, _RowLayout, init_admm_state
+    from dqgp_tpu_torch.models.gp.cv import FoldIndexBuffers, cv_fold_scores_impl
     from dqgp_tpu_torch.parallel.consensus import make_admm_step, make_agent_batch
 
     spec, X, Y, splits, seed = _problem(cell, dev)
     cfg = (cs.config7_train_config(1, verbose=False) if cell == "config7"
            else TrainConfig(verbose=False, seed=seed))
+    # the chunk's step flags failed factorizations, as the driver's does
     step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
-                          compute_cond=cfg.compute_cond, grad_method=cfg.grad_method)
+                          compute_cond=cfg.compute_cond and cond == "device",
+                          grad_method=cfg.grad_method, psd_fallback=chain == 1)
     batch = make_agent_batch(splits, dev)
     Xt, Yt = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
     theta, psi, _ = init_admm_state(len(splits), spec.num_parameters, seed, cfg.rho)
     state = [torch.as_tensor(theta, device=dev), torch.as_tensor(psi, device=dev)]
-    folds = kfold_pad_indices(len(X), cfg.cv_folds, seed + 1, dev)
+    folds = FoldIndexBuffers(len(X), cfg.cv_folds, chain, dev)
+    folds.fill([seed + 1 + j for j in range(chain)])
+    layout = _RowLayout(len(splits), spec.num_parameters, 3 * cfg.cv_folds)
 
-    def iteration():
-        out = step(state[0], state[1], batch)
-        cv_fold_scores_impl(spec, Xt, Yt, out.z, *folds, noise_std=cfg.noise_std)
-        state[0], state[1] = out.theta, out.psi
+    def one(theta, psi, j):
+        out = step(theta, psi, batch)
+        scores = cv_fold_scores_impl(spec, Xt, Yt, out.z, *folds.folds(j),
+                                     noise_std=cfg.noise_std)
+        return out, layout.pack(out, scores)
+
+    if chain > 1:
+        runner = _ChunkRunner(one, chain, layout.width, dev, capture=True)
+
+        def iteration():
+            _, state[0], state[1] = runner.run(state[0], state[1])
+    else:
+        def iteration():
+            out, row = one(state[0], state[1], 0)
+            row.cpu()   # the driver's one fetch
+            state[0], state[1] = out.theta, out.psi
 
     iteration()
     torch.cuda.synchronize()
@@ -98,6 +123,8 @@ def profile(cell, iters, dev):
             iteration()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    iters *= chain
+    wall_ms /= chain
 
     by_group = {name: 0.0 for name, _ in GROUPS}
     n_kernels = 0
@@ -112,7 +139,8 @@ def profile(cell, iters, dev):
                 by_group[name] += us / 1e3 / iters
                 break
     device_ms = sum(by_group.values())
-    print(f"{cell}: wall {wall_ms:.3f} ms/iteration, device {device_ms:.3f} ms, "
+    print(f"{cell} (cond {cond}, chain {chain}): wall {wall_ms:.3f} ms/iteration, "
+          f"device {device_ms:.3f} ms, "
           f"idle share {1 - device_ms / wall_ms:.3f}, "
           f"{n_kernels / iters:.0f} kernels/iteration")
     for name, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
@@ -126,6 +154,11 @@ def main() -> int:
                     help="profiled iterations (default 5, 1 for config7)")
     ap.add_argument("--fusion", choices=("auto", "on", "off"), default="auto",
                     help="the fusion switch (default auto)")
+    ap.add_argument("--cond", choices=("host", "device"), default="host",
+                    help="condition numbers after training (host, train()'s default on "
+                         "the card) or in the step (device)")
+    ap.add_argument("--chain", type=int, default=1,
+                    help="iterations a CUDA-graph replay (default 1: no graph)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -135,9 +168,12 @@ def main() -> int:
     config.set_precision_policy()
     config.use_fusion = args.fusion
     dev = torch.device("cuda", 0)
-    print(f"fusion {args.fusion}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    print(f"[{smi}] fusion {args.fusion}")
     for cell in (CELLS if args.cell == "all" else (args.cell,)):
-        profile(cell, args.iters or (1 if cell == "config7" else 5), dev)
+        profile(cell, args.iters or (1 if cell == "config7" else 5), dev, args.cond,
+                args.chain)
     return 0
 
 

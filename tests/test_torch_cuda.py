@@ -1,7 +1,8 @@
 """Tests that need the card: the CUDA circuit kernels — Pauli features (K1,
 float32 and float64), states (K2, float32 and float64), fused-program Pauli
-features (K3) and fused-program states (K4) — against their plain PyTorch
-versions, on CUDA tensors. They skip where there is no card.
+features (K3), fused-program states (K4) and the adjoint (the backward of K1
+and K2) — against their plain PyTorch versions, on CUDA tensors. They skip
+where there is no card.
 
 On a GPU host, where JAX need not be installed (the port does not use it),
 bypass conftest.py, which imports JAX:
@@ -82,6 +83,52 @@ def test_states_kernels_match_plain_on_card(cuda, enc):
                          .abs().max()) <= 1e-12
 
 
+@pytest.mark.parametrize("enc", ENCODING_TYPES)
+@pytest.mark.parametrize("output", K1.VJP_OUTPUTS)
+def test_adjoint_kernel_matches_plain_on_card(cuda, enc, output):
+    """The adjoint kernel against torch.autograd through K1's / K2's plain
+    version, within 5e-5 of max(1, max |g|) (chip_smoke.py's VJP_TOL), for
+    every qubit count, one launch a call."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for n in range(1, K1.MAX_QUBITS + 1):
+        c = build_circuit(enc, n, 2, 2)
+        for B in (1, 257):
+            a = _angles(gen, c, B, torch.float32)
+            if output == "features":
+                cot = torch.rand((B, 3 * n), generator=gen, device=cuda) * 2 - 1
+            else:
+                cot = torch.randn((B, c.dim), generator=gen, device=cuda, dtype=torch.complex64)
+            key = "K1_vjp" if output == "features" else "K2_vjp"
+            before = K1.launch_counts()[key]
+            got = K1.circuit_vjp(c, a, cot, output)
+            torch.cuda.synchronize()
+            assert K1.launch_counts()[key] == before + 1
+            want = K1.circuit_vjp_reference(c, a, cot, output)
+            assert float((got - want).abs().max()) <= 5e-5 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("kernel_type", ["projected", "fidelity"])
+def test_autodiff_step_runs_the_kernels_both_ways(cuda, kernel_type):
+    """grad_method="autodiff" on the card: K1 (K2) forward and the adjoint
+    backward, one launch each, and the gradient of the CPU's plain run. The
+    circuit is chebyshev for both kernels: kyriienko's fidelity Gram does
+    not depend on the parameters here (its float64 gradient is ~1e-14), so
+    its float32 gradients are noise."""
+    import numpy as np
+
+    from dqgp_tpu_torch.parallel.consensus import autodiff_nll_and_grad, make_agent_batch
+
+    spec, X, Y, splits = _cheb_problem(kernel_type, enc="chebyshev")
+    z = torch.as_tensor(np.random.RandomState(3).uniform(0.2, 3.0, spec.num_parameters))
+    K1.reset_launch_counts()
+    got = autodiff_nll_and_grad(spec, make_agent_batch(splits, cuda), z.to(cuda), 0.1).grad
+    counts = K1.launch_counts()
+    fwd, bwd = ("K1", "K1_vjp") if kernel_type == "projected" else ("K2", "K2_vjp")
+    assert counts[fwd] == counts[bwd] == 1 and sum(counts.values()) == 2
+    want = autodiff_nll_and_grad(spec, make_agent_batch(splits, "cpu"), z, 0.1).grad
+    assert float((got.cpu() - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
 def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
     """K4 takes the angles: nothing on the card's path builds packed rows
     (fusion.packed_inputs raises if anything calls it)."""
@@ -102,7 +149,7 @@ def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
     monkeypatch.setattr(fusion, "su2_products", no_packed_rows)
     TQ.features_from_angles(spec, a)
     assert K1.launch_counts() == {"K1": 0, "K1_f64": 0, "K2": 1, "K2_f64": 1, "K3": 0,
-                                  "K4": 1}
+                                  "K4": 1, "K1_vjp": 0, "K2_vjp": 0}
 
 
 @pytest.mark.parametrize("enc", ENCODING_TYPES)
@@ -138,4 +185,111 @@ def test_card_fused_projected_features_go_through_k3(cuda, monkeypatch):
     monkeypatch.setattr(config, "use_fusion", "off")
     TQ.features_from_angles(spec, a)
     assert K1.launch_counts() == {"K1": 1, "K1_f64": 1, "K2": 0, "K2_f64": 0, "K3": 1,
-                                  "K4": 0}
+                                  "K4": 0, "K1_vjp": 0, "K2_vjp": 0}
+
+
+def _cheb_problem(kernel_type="projected", n=60, agents=2, qubits=3, enc=None):
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from dqgp_tpu_torch.data import split_data_numpy
+
+    enc = enc or ("chebyshev" if kernel_type == "projected" else "kyriienko")
+    spec = QuantumKernelSpec(circuit=build_circuit(enc, qubits, 2, 1), kernel_type=kernel_type,
+                             outer_kernel="matern")
+    rng = np.random.RandomState(0)
+    X = rng.uniform(-0.99, 0.99, (n, 2))
+    Y = np.sin(3 * X[:, 0]) * np.cos(2 * X[:, 1]) + 0.1 * rng.randn(n)
+    with contextlib.redirect_stdout(io.StringIO()):
+        splits = split_data_numpy(X, Y, agents, "regional")
+    return spec, X, Y, splits
+
+
+@pytest.mark.parametrize("kernel_type,kernel", [("projected", "K1"), ("fidelity", "K2")])
+def test_chained_dispatch_replays_one_cuda_graph(cuda, kernel_type, kernel):
+    """chain_iters=3 over 7 iterations: one capture after a warm-up, three
+    replays (the last stops inside its chunk), each launching the path's
+    kernel once a step and once a CV pass; z, theta and psi bit for bit the
+    per-iteration loop's."""
+    import numpy as np
+
+    from dqgp_tpu_torch.driver import TrainConfig, train
+
+    spec, X, Y, splits = _cheb_problem(kernel_type)
+    kw = dict(cv_folds=3, verbose=False, max_iter=7)
+    a = train(spec, splits, X, Y, TrainConfig(**kw), device=cuda)
+    K1.reset_launch_counts()
+    b = train(spec, splits, X, Y, TrainConfig(chain_iters=3, **kw), device=cuda)
+    assert (b.iterations, b.converged_by) == (a.iterations, a.converged_by) == (7, "max_iter")
+    for f in ("z", "theta", "psi"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+    for ha, hb in zip(a.cv_history, b.cv_history):
+        np.testing.assert_array_equal(hb["consensus_params"], ha["consensus_params"])
+        np.testing.assert_allclose(hb["consensus_cv_score"], ha["consensus_cv_score"], rtol=1e-12)
+    st = b.chain_stats
+    assert st["captured"] and st["replays"] == 3
+    assert st["launches_per_replay"] == {kernel: 6}
+    assert st["graph_pool_peak_bytes"] > 0
+    # the wrappers counted the warm-up (2 calls) and the capture (6), not the replays
+    assert K1.launch_counts()[kernel] == 2 + 6
+
+
+def test_host_condition_numbers_on_card_match_the_cpu(cuda):
+    """The float64 backfill through K1's float64 kernel against the plain
+    complex128 engine on the CPU."""
+    import numpy as np
+
+    from dqgp_tpu_torch.driver import host_condition_numbers
+
+    spec, X, Y, splits = _cheb_problem()
+    Z = np.random.RandomState(1).uniform(0, np.pi, (18, spec.num_parameters)).round(4)
+    K1.reset_launch_counts()
+    got = host_condition_numbers(spec, splits, Z, device=cuda)
+    assert K1.launch_counts()["K1_f64"] == 2 * 2  # agents x 16-row chunks
+    np.testing.assert_allclose(got, host_condition_numbers(spec, splits, Z, device="cpu"),
+                               rtol=1e-6)
+
+
+def test_flag_solve_is_captured(cuda):
+    """solve_psd_with_fallback(fallback=False) in a CUDA graph: a replay on
+    new inputs equals the eager solve, a failed member reads NaN."""
+    from dqgp_tpu_torch.ops.linalg import solve_psd_with_fallback
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    A = torch.randn((3, 20, 20), generator=gen, device=cuda, dtype=torch.float64)
+    C = A @ A.transpose(-1, -2) + torch.eye(20, device=cuda, dtype=torch.float64)
+    y = torch.randn((3, 20), generator=gen, device=cuda, dtype=torch.float64)
+    C_in, y_in = C.clone(), y.clone()
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        solve_psd_with_fallback(C_in, y_in, fallback=False)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=stream):
+        out = solve_psd_with_fallback(C_in, y_in, fallback=False)
+    C2 = C.clone()
+    C2[1] = -C2[1]                      # not positive definite
+    C_in.copy_(C2)
+    g.replay()
+    torch.cuda.synchronize()
+    want = solve_psd_with_fallback(C2, y, fallback=False)
+    assert bool(torch.isnan(out.logdet[1])) and not bool(out.chol_ok[1])
+    torch.testing.assert_close(out.C_inv_y[[0, 2]], want.C_inv_y[[0, 2]], rtol=0, atol=0)
+
+
+def test_eigvalsh_cannot_be_captured(cuda):
+    """Why cond_mode="device" with chain_iters > 1 is refused on CUDA:
+    torch's eigvalsh checks its info on the host, which a capture forbids."""
+    C = torch.eye(8, device=cuda, dtype=torch.float64).expand(2, 8, 8).contiguous()
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        torch.linalg.eigvalsh(C)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError):
+        with torch.cuda.graph(g, stream=stream):
+            torch.linalg.eigvalsh(C)

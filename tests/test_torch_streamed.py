@@ -115,9 +115,11 @@ def test_agent_grams_shape_and_central_grams():
 
 
 def test_unported_grad_method_raises():
+    # "autodiff" is ported (tests/test_torch_autodiff.py); a name that
+    # neither package has still raises
     jspec, splits, theta, psi = _setup()
-    step = torch_step(spec_from_jax(jspec), grad_method="autodiff", **KW)
-    with pytest.raises(NotImplementedError, match="autodiff"):
+    step = torch_step(spec_from_jax(jspec), grad_method="adjoint", **KW)
+    with pytest.raises(NotImplementedError, match="grad_method 'adjoint'"):
         step(torch.tensor(theta), torch.tensor(psi), torch_batch(splits, "cpu"))
 
 
