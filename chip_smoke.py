@@ -8,13 +8,15 @@ Phases, one line each; any failure raises and exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds the Pauli-feature (K1), states (K2), fused
              Pauli-feature (K3) and fused states (K4) kernels and the
-             adjoint kernel (the backward of K1 and K2) for sm_90a, one nvcc
+             adjoint kernel (the backward of K1 and K2; and its first
+             layout, which phase 15a times beside it) for sm_90a, one nvcc
              each, all started together, with ptxas's register and
              spill report; for each of the ten float32 instantiations (1-10
-             qubits) of K1, K2, K3 and K4 its registers, stack frame and
-             spills, which must be 0 and 0; K1's geometry and resident blocks
-             an SM at the north star's circuit, K3's at config #7's, K2's and
-             K4's at config #5's;
+             qubits) of K1, K2, K3, K4 and the adjoint its registers, stack
+             frame and spills, which must be 0 and 0; K1's geometry and
+             resident blocks an SM at the north star's circuit, K3's at
+             config #7's, K2's and K4's at config #5's, the adjoint's at
+             all three;
 3. K1      — the kernel against its plain PyTorch version on the same CUDA
              tensors: 8 circuit families x every qubit count 1..10 (each
              instantiation, both sides of the register/lane split) x batch
@@ -143,13 +145,27 @@ Phases, one line each; any failure raises and exits non-zero:
 15. autodiff — (a) the adjoint kernel (``csrc/circuit_vjp.cu``, K1's and
              K2's backward) against its plain version (torch.autograd
              through their plain versions): 8 families x every qubit count
-             1..10 x batch {1, 130} x features and states, plus the autodiff
-             step's shape, within 5e-5 of max(1, max |g|), and its times;
+             1..10 x batch {1, 130} x features and states, plus the three
+             autodiff steps' shapes (VJP_SHAPES: the north star's B=1,040 at
+             4 qubits, config #5's B=900 at 6, states, config #7's B=54,016
+             at 10, the plain version on slices there), within 5e-5 of
+             max(1, max |g|); at those shapes the kernel, its first layout
+             (``csrc/circuit_vjp_first_layout.cu``) and the plain version in
+             turns, each kernel alone from the profiler, and the bound;
              (b) the north star for 3 iterations with grad_method="autodiff"
              (K1 forward, the adjoint kernel backward, in every step; K1 in
              the CV passes) against the JAX fixture's run: z within 5e-3,
              CV-NLPD within 0.05, iteration 1's gradient within 1e-3 of its
-             largest component of JAX's.
+             largest component of JAX's; one autodiff iteration timed beside
+             the central one, and the adjoint's share of the step's device
+             time; (c), after phase 12: config #7 with
+             grad_method="autodiff", the fixture problem against
+             tests/fixtures/torch_port_config7_autodiff.json (agent NLLs at
+             JAX's z within phase 11a's bars, iteration 1's gradient within
+             config7_autodiff_grad_bar, z within 5e-3), then at full width
+             (49,999 rows, 64 agents, 2 iterations: K3 twice and the adjoint
+             once an iteration, iteration 1's nll_sum against the JAX log's)
+             and its step timed beside phase 12's streamed step.
 
 The last two lines are a JSON record of the kernels (each with its bound:
 the larger of its bytes over the card's memory rate and its operations over
@@ -170,8 +186,14 @@ of the fused Pauli-feature kernel.
 
 runs phases 1, 2, 6 and the two states kernels' times only (no result
 lines): the quick check of K2 and K4.
+
+    python3 chip_smoke.py --vjp
+
+runs phases 1, 2 and 15a only (no result lines): the quick check of the
+adjoint kernel.
 """
 
+import functools
 import hashlib
 import json
 import os
@@ -263,6 +285,15 @@ AUTODIFF_ITERS = 3                   # phase 15
 AUTODIFF_GRAD_TOL = 1e-3             # of the largest component: float32 features on both
                                      # sides, whose last ulps the NLL solve amplifies
 VJP_TOL = 5e-5                       # float32 adjoint vs plain autograd, of max(1, max |g|)
+FIRST_LAYOUT_VJP = "circuit_vjp_first_layout.cu"  # the adjoint's first layout, timed in 15a
+VJP_PLAIN_ROWS = 2048                # the plain autograd's slice at config #7's shape: its
+                                     # saved states (54,016 x 1024 complex64 a gate) do not fit
+# phase 15a's timed shapes: each autodiff step's adjoint launch (agents x Nmax rows)
+VJP_SHAPES = (("north star", N_AGENTS * 260, "features"),
+              ("config #5", FID_AGENTS * 225, "states"),
+              ("config #7", C7_AGENTS * C7_NMAX, "features"))
+CONFIG7_AUTODIFF_FIXTURE = os.path.join(REPO, "tests", "fixtures",
+                                        "torch_port_config7_autodiff.json")
 
 
 def array_digest(a) -> str:
@@ -362,7 +393,8 @@ def build_kernels(sources):
 
 # the warp kernels' entry functions, templated on the qubit count
 WARP_KERNELS = {"K1": "warp_pauli_features_kernel", "K2": "warp_states_kernel",
-                "K3": "warp_features_kernel", "K4": "warp_states_fused_kernel"}
+                "K3": "warp_features_kernel", "K4": "warp_states_fused_kernel",
+                "vjp": "warp_vjp_kernel"}
 
 
 def warp_ptxas(log: str, entry: str) -> dict:
@@ -436,12 +468,12 @@ def config7_problem(n_samples: int, n_agents: int):
     return X_tr, Y_tr, X_te, Y_te, splits
 
 
-def config7_train_config(iters: int, **kw):
+def config7_train_config(iters: int, grad_method: str = "streamed", **kw):
     """The driver settings of config #7's run (examples/scale_out_training.py:
     89,96 sets compute_cond=False)."""
     from dqgp_tpu_torch.driver import TrainConfig
 
-    return TrainConfig(max_iter=iters, seed=C7_SEED, grad_method="streamed",
+    return TrainConfig(max_iter=iters, seed=C7_SEED, grad_method=grad_method,
                        cv_max_samples=C7_CV_MAX, compute_cond=False, **kw)
 
 
@@ -467,6 +499,23 @@ def config7_nll_bars(ref) -> np.ndarray:
     spread = np.max([(np.abs(nll - np.array(ref[k])) / np.abs(nll)).max(axis=1)
                      for k in C7_NLL_RESCORES if k in ref], axis=0)
     return np.maximum(NLL_RTOL, 2 * spread)
+
+
+C7_GRAD_RESCORES = ("iteration1_grad_f64_features", "iteration1_grad_fused_f32")
+
+
+def config7_autodiff_grad_bar(ref) -> float:
+    """Iteration 1's autodiff gradient bar at config #7, as a fraction of
+    its largest component: max(AUTODIFF_GRAD_TOL, 2 x the JAX package's own
+    spread), the spread being the largest difference between its step's
+    gradient and the same gradient from float64 features and from the
+    float32 gate-fused program (the one K3 runs), as the fixture
+    (tests/fixtures/torch_port_config7_autodiff.json) holds them. The
+    10-qubit Matérn Grams amplify a last-ulp feature change in the gradient
+    as they do in the agent NLLs (config7_nll_bars)."""
+    g = np.array(ref["iteration1_grad"])
+    spread = max(np.abs(np.array(ref[k]) - g).max() for k in C7_GRAD_RESCORES)
+    return max(AUTODIFF_GRAD_TOL, 2 * spread / np.abs(g).max())
 
 
 def config7_agent_nll_at(spec, splits, z_traj, dev, noise_std: float) -> np.ndarray:
@@ -1015,10 +1064,11 @@ def time_states(rand_angles, smi: str) -> dict:
                    "device_ms": k4_dev_ms}}
 
 
-def config7_phases(dev, smi: str, rand_angles) -> dict:
-    """Phases 10-12: K3 against its plain version, the config #7 path
-    (fixture problem, then full size) and its times. Returns K3's entry of
-    the kernels record."""
+def config7_phases(dev, smi: str, rand_angles):
+    """Phases 10-12 and 15c: K3 against its plain version, the config #7
+    path (fixture problem, then full size) and its times, then config #7
+    with grad_method="autodiff". Returns (K3's entry of the kernels record,
+    the autodiff record)."""
     import torch
 
     from dqgp_tpu_torch import manifold as M
@@ -1218,8 +1268,9 @@ def config7_phases(dev, smi: str, rand_angles) -> dict:
           f"gram_matvec at N={len(X_tr)}: 1 right-hand side {mv_ms:.2f} ms "
           f"({len(X_tr) ** 2 / (mv_ms * 1e-3):.3e} entries/s), {C7_TEST_ROWS} {mv512_ms:.2f} ms",
           flush=True)
-    return {"launches": counts["K3"], "max_abs_err": worst, **k3, "library_ms": None,
-            "max_abs_err_vs_unfused": worst_unfused, "step_ms": step_ms}
+    ad = config7_autodiff_phase(dev, smi, (X_tr, Y_tr, splits), step_ms)
+    return ({"launches": counts["K3"], "max_abs_err": worst, **k3, "library_ms": None,
+             "max_abs_err_vs_unfused": worst_unfused, "step_ms": step_ms}, ad)
 
 
 def runs_identical(a, b, what: str):
@@ -1366,14 +1417,15 @@ def cond_phase(dev, smi: str, rand_angles, fid) -> dict:
 # the float32 kernels' names as the profiler reports them (each a substring
 # of its instantiations' demangled names, and of no other kernel's)
 PROFILED_NAMES = {"K1": "warp_pauli_features_kernel", "K2": "warp_states_kernel",
-                  "K1_vjp": "circuit_vjp_kernel"}
+                  "K1_vjp": "warp_vjp_kernel"}
 
 
 def _profiled(fn, names=()):
     """(result, kernels the profiler saw, their device ms, host wall ms,
-    {name: launches of the kernels whose name holds PROFILED_NAMES[name]})
-    of one call of ``fn``. The counts are the device's own record: kernels
-    replayed from a CUDA graph count each time they run."""
+    {name: launches of the kernels whose name holds PROFILED_NAMES[name]},
+    {name: their device ms}) of one call of ``fn``. The counts are the
+    device's own record: kernels replayed from a CUDA graph count each time
+    they run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1384,7 +1436,7 @@ def _profiled(fn, names=()):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     n, us = 0, 0.0
-    counts = dict.fromkeys(names, 0)
+    counts, named_us = dict.fromkeys(names, 0), dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n += e.count
@@ -1392,7 +1444,8 @@ def _profiled(fn, names=()):
             for name in names:
                 if PROFILED_NAMES[name] in e.key:
                     counts[name] += e.count
-    return out, n, us / 1e3, wall, counts
+                    named_us[name] += e.self_device_time_total
+    return out, n, us / 1e3, wall, counts, {k: v / 1e3 for k, v in named_us.items()}
 
 
 def chained_phase(dev, smi: str, fid) -> dict:
@@ -1449,7 +1502,7 @@ def chained_phase(dev, smi: str, fid) -> dict:
         # replay). Eager: the warm-up's step and CV pass, CV re-scores and
         # rescued rows; each replay: k steps and k CV passes.
         cfg = TrainConfig(max_iter=iters, seed=seed, chain_iters=k, verbose=False)
-        p, n_k, dev_k, wall_k, measured = _profiled(
+        p, n_k, dev_k, wall_k, measured, _ = _profiled(
             lambda: train(sp, spl, Xtr, Ytr, cfg, device=dev), (kernel,))
         runs_identical(a, p, f"{what}: the profiled chained run")
         launches = measured[kernel]
@@ -1484,7 +1537,8 @@ def chained_phase(dev, smi: str, fid) -> dict:
             # kernels an iteration and the idle share, from the profiler over
             # a whole run of each mode (its host cost is in the wall)
             cfg1 = TrainConfig(max_iter=iters, seed=seed, verbose=False)
-            _, n, dev_ms, wall, _ = _profiled(lambda: train(sp, spl, Xtr, Ytr, cfg1, device=dev))
+            _, n, dev_ms, wall, _, _ = _profiled(
+                lambda: train(sp, spl, Xtr, Ytr, cfg1, device=dev))
             prof = {1: (n / iters, dev_ms / iters, wall / iters),
                     k: (n_k / iters, dev_k / iters, wall_k / iters)}
             line += "; profiled runs, one at a time vs chained: " + " vs ".join(
@@ -1543,14 +1597,77 @@ def vjp_bound(circuit, B: int, output: str):
     return bound_ms(4 * B * (2 * circuit.num_gates + cot), B * vjp_ops(circuit, output))
 
 
-def check_vjp(rand_angles, rows: int) -> dict:
+def vjp_first_layout_config(num_qubits: int, num_gates: int):
+    """(threads per block, padded angle-row stride, dynamic smem bytes) of
+    the adjoint's first layout: a thread's two float32 states as
+    [amplitude][thread] re and im planes and its angle row at an odd
+    stride; threads per block halve from 128 until that fits 200 KB."""
+    dim, gstride = 1 << num_qubits, num_gates | 1
+    tpb = 128
+    while tpb > 1 and tpb * 4 * (4 * dim + gstride) > 200 * 1024:
+        tpb //= 2
+    return tpb, gstride, tpb * 4 * (4 * dim + gstride)
+
+
+@functools.lru_cache(maxsize=None)
+def _first_layout_library():
+    import ctypes
+
+    from dqgp_tpu_torch.ops import _build
+
+    lib = _build.load(FIRST_LAYOUT_VJP)
+    lib.dqgp_circuit_vjp_first_layout.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p])
+    lib.dqgp_circuit_vjp_first_layout.restype = ctypes.c_int
+    return lib
+
+
+def vjp_first_layout(circuit, angles, cotangent, output: str):
+    """The adjoint's first layout (csrc/circuit_vjp_first_layout.cu: one
+    thread a sample, both states in shared memory, qubit q on bit q for
+    both outputs), launched as its wrapper did, for phase 15a's times. It
+    counts no launch: the package does not run it."""
+    import torch
+
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    B, G = angles.shape
+    grad = torch.empty_like(angles)
+    cot = cotangent.contiguous()
+    if output == "states":
+        cot = torch.view_as_real(cot)
+    tpb, gstride, smem = vjp_first_layout_config(circuit.num_qubits, G)
+    err = _first_layout_library().dqgp_circuit_vjp_first_layout(
+        angles.data_ptr(), K._gate_table(circuit, angles.device).data_ptr(), cot.data_ptr(),
+        grad.data_ptr(), B, G, circuit.num_qubits, K.VJP_OUTPUTS.index(output), tpb, gstride,
+        smem, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the first-layout adjoint's launch failed: error {err}")
+    return grad
+
+
+def vjp_shape_circuit(what: str):
+    """The circuit of phase 15a's shape ``what`` (VJP_SHAPES)."""
+    from dqgp_tpu_torch.models.circuits import build_circuit
+
+    if what == "north star":
+        return northstar_spec().circuit
+    if what == "config #5":
+        return build_circuit("kyriienko", FID_QUBITS, 1, FID_LAYERS)
+    return config7_spec().circuit
+
+
+def check_vjp(rand_angles) -> dict:
     """Phase 15a: the adjoint kernel (K1's and K2's backward) against its
     plain version (torch.autograd through K1's and K2's plain versions) on
     the same CUDA tensors, for 8 families x every qubit count 1..10 x batch
-    {1, 130} x both outputs, plus the autodiff step's own shape (the north
-    star's circuit at ``rows`` = agents x Nmax feature rows); the worst
-    |diff| / max(1, max |plain|), and the kernel's times there against the
-    plain version's, with its bound."""
+    {1, 130} x both outputs, plus each autodiff step's shape (VJP_SHAPES; at
+    config #7's the plain version on the first and the last VJP_PLAIN_ROWS
+    rows of the launch), within VJP_TOL of max(1, max |plain|); the first
+    layout at those shapes too. Then at each shape the new kernel, the first
+    layout and the plain version timed in turns (a call by CUDA events; the
+    plain version on the slice at config #7's), the two kernels alone from
+    the profiler, and the bound. Returns the worst errors and {shape:
+    record}."""
     import torch
 
     from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
@@ -1565,62 +1682,97 @@ def check_vjp(rand_angles, rows: int) -> dict:
         return torch.randn((B, circuit.dim), generator=gen, device="cuda",
                            dtype=torch.complex64)
 
-    main_circuit = northstar_spec().circuit
+    def hold(got, want, what):
+        check(got.shape == want.shape and got.dtype == torch.float32,
+              f"adjoint shape {tuple(got.shape)} {got.dtype} ({what})")
+        diff = float((got - want).abs().max())
+        err = diff / max(1.0, float(want.abs().max()))
+        check(np.isfinite(err) and err <= VJP_TOL, f"adjoint vs plain {what}: {err}")
+        return err, diff
+
     cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B, out)
              for enc in ENCODING_TYPES for n in WARP_QUBITS for B in (1, 130)
              for out in K.VJP_OUTPUTS]
-    cases += [(main_circuit, rows, "features"), (main_circuit, STEP_ROWS, "features")]
-    worst = worst_abs = 0.0
+    worst = worst_abs = worst_first = 0.0
     for circuit, B, output in cases:
         a = rand_angles(circuit, B)
         cot = cotangent(circuit, B, output)
         got = K.circuit_vjp(circuit, a, cot, output)
         want = K.circuit_vjp_reference(circuit, a, cot, output)
         torch.cuda.synchronize()
-        check(got.shape == a.shape and got.dtype == torch.float32,
-              f"adjoint shape {tuple(got.shape)} {got.dtype}")
-        diff = float((got - want).abs().max())
-        err = diff / max(1.0, float(want.abs().max()))
-        check(np.isfinite(err) and err <= VJP_TOL,
-              f"adjoint vs plain {circuit.name} {circuit.num_qubits}q B={B} {output}: {err}")
+        err, diff = hold(got, want, f"{circuit.name} {circuit.num_qubits}q B={B} {output}")
         worst, worst_abs = max(worst, err), max(worst_abs, diff)
-    a = rand_angles(main_circuit, rows)
-    cot = cotangent(main_circuit, rows, "features")
-    ms, plain_ms = _alternate_ms(
-        [lambda: K.circuit_vjp(main_circuit, a, cot, "features"),
-         lambda: K.circuit_vjp_reference(main_circuit, a, cot, "features")], 20)
-    device_ms = _device_ms(lambda: K.circuit_vjp(main_circuit, a, cot, "features"), 20)
-    bound, bound_by = vjp_bound(main_circuit, rows, "features")
-    print(f"phase 15a adjoint vs plain ({time.time() - t0:.2f} s): {len(cases)} cases, worst "
-          f"|diff| / max(1, max |plain|) {worst:.3e} (tol {VJP_TOL}), max abs diff "
-          f"{worst_abs:.3e}; at the autodiff step's "
-          f"B={rows} G={main_circuit.num_gates} n={NUM_QUBITS}: {ms:.4f} ms a call vs plain "
-          f"(autograd) {plain_ms:.4f} ms, the kernel alone (profiler) {device_ms:.4f} ms, bound "
-          f"{bound:.5f} ms ({bound_by})", flush=True)
-    return {"max_abs_err": worst_abs, "max_rel_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": bound_by, "device_ms": device_ms, "B": rows}
+
+    shapes = {}
+    for what, B, output in VJP_SHAPES:
+        circuit = vjp_shape_circuit(what)
+        a = rand_angles(circuit, B)
+        cot = cotangent(circuit, B, output)
+        sliced = what == "config #7"
+        rows = [slice(0, VJP_PLAIN_ROWS), slice(B - VJP_PLAIN_ROWS, B)] if sliced else [slice(0, B)]
+        got = K.circuit_vjp(circuit, a, cot, output)
+        first = vjp_first_layout(circuit, a, cot, output)
+        for r in rows:
+            want = K.circuit_vjp_reference(circuit, a[r], cot[r], output)
+            torch.cuda.synchronize()
+            err, diff = hold(got[r], want, f"{what} B={B} rows {r.start}:{r.stop}")
+            worst, worst_abs = max(worst, err), max(worst_abs, diff)
+            worst_first = max(worst_first, hold(first[r], want, f"{what}, first layout")[0])
+        del got, first
+        ap, cp = (a[:VJP_PLAIN_ROWS], cot[:VJP_PLAIN_ROWS]) if sliced else (a, cot)
+        reps = 3 if sliced else 20
+        ms, first_ms, plain_ms = _alternate_ms(
+            [lambda: K.circuit_vjp(circuit, a, cot, output),
+             lambda: vjp_first_layout(circuit, a, cot, output),
+             lambda: K.circuit_vjp_reference(circuit, ap, cp, output)], reps)
+        device_ms = _device_ms(lambda: K.circuit_vjp(circuit, a, cot, output), reps)
+        first_device_ms = _device_ms(lambda: vjp_first_layout(circuit, a, cot, output), reps)
+        bound, bound_by = vjp_bound(circuit, B, output)
+        shapes[what] = {"B": B, "qubits": circuit.num_qubits, "gates": circuit.num_gates,
+                        "output": output, "ms": ms, "device_ms": device_ms,
+                        "first_layout_ms": first_ms, "first_layout_device_ms": first_device_ms,
+                        "plain_ms": plain_ms, "plain_rows": len(ap), "bound_ms": bound,
+                        "bound_by": bound_by}
+        del a, cot
+        torch.cuda.empty_cache()
+    print(f"phase 15a adjoint vs plain ({time.time() - t0:.2f} s): {len(cases)} cases + "
+          f"{len(VJP_SHAPES)} autodiff-step shapes, worst |diff| / max(1, max |plain|) "
+          f"{worst:.3e} (tol {VJP_TOL}), max abs diff {worst_abs:.3e}; the first layout at the "
+          f"shapes {worst_first:.3e}; " + "; ".join(
+              f"{what} B={t['B']} n={t['qubits']} G={t['gates']} {t['output']}: {t['ms']:.4f} ms "
+              f"a call, {t['device_ms']:.4f} alone vs first layout {t['first_layout_ms']:.4f} / "
+              f"{t['first_layout_device_ms']:.4f} vs plain (autograd, {t['plain_rows']} rows) "
+              f"{t['plain_ms']:.4f}; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), share "
+              f"{t['bound_ms'] / t['ms']:.2%} a call, {t['bound_ms'] / t['device_ms']:.2%} alone "
+              f"(first layout {t['bound_ms'] / t['first_layout_device_ms']:.2%})"
+              for what, t in shapes.items()), flush=True)
+    return {"max_abs_err": worst_abs, "max_rel_err": worst, "max_rel_err_first_layout": worst_first,
+            "by_shape": shapes}
 
 
 def autodiff_phase(dev, smi: str, rand_angles) -> dict:
-    """Phase 15: the adjoint kernel against its plain version (15a), then
-    the north star with grad_method="autodiff" against the JAX fixture's
-    run, and iteration 1's gradient beside JAX's. Returns the adjoint's
-    record."""
+    """Phase 15: the adjoint kernel against its plain version and its first
+    layout (15a), then (15b) the north star with grad_method="autodiff"
+    against the JAX fixture's run, iteration 1's gradient beside JAX's, and
+    one autodiff iteration timed beside the central one as train() runs
+    them on the card. Returns the adjoint's record."""
     import torch
 
     from dqgp_tpu_torch import manifold as M
     from dqgp_tpu_torch.driver import TrainConfig, train
+    from dqgp_tpu_torch.models.gp.cv import cv_fold_scores_impl, kfold_pad_indices
     from dqgp_tpu_torch.ops import cuda_circuit as K
-    from dqgp_tpu_torch.parallel.consensus import autodiff_nll_and_grad, make_agent_batch
+    from dqgp_tpu_torch.parallel.consensus import (
+        autodiff_nll_and_grad, make_admm_step, make_agent_batch)
 
     with open(DRIVER_MODES_FIXTURE) as f:
         ref = json.load(f)["autodiff"]
     X, Y, X_test, Y_test, splits = northstar_splits()
     check(problem_digest(X, Y, X_test, Y_test) == ref["problem_sha256"],
           "north-star data differ from the autodiff fixture's")
-    rows = N_AGENTS * max(len(x) for x, _ in splits)
-    vjp = check_vjp(rand_angles, rows)
+    check(N_AGENTS * max(len(x) for x, _ in splits) == VJP_SHAPES[0][1],
+          "the autodiff step's adjoint batch is not the one phase 15a timed")
+    vjp = check_vjp(rand_angles)
     spec = northstar_spec()
     cfg = TrainConfig(max_iter=AUTODIFF_ITERS, grad_method="autodiff", verbose=False)
     t0 = time.time()
@@ -1650,18 +1802,165 @@ def autodiff_phase(dev, smi: str, rand_angles) -> dict:
     g_dev = float(np.abs(g - g_ref).max() / np.abs(g_ref).max())
     check(bool(np.all(np.isfinite(g))), "non-finite autodiff gradient")
     worst = np.unravel_index(np.argmax(np.abs(g - g_ref)), g.shape)
-    print(f"phase 15 autodiff ({train_s:.2f} s) [{smi}]: {AUTODIFF_ITERS} iterations with "
-          f"grad_method=autodiff, launches {counts}; z dev {z_dev:.1e} (tol {Z_TOL}), CV-NLPD dev "
-          f"{cv_dev:.2e} (tol {NLPD_TOL}); iteration 1's gradient vs jax.value_and_grad: max "
+
+    # one iteration (step + CV) of each gradient, as train() runs it on the
+    # card (cond_mode "auto" = "host": no condition numbers in the step), in
+    # turns; the adjoint's device time within an autodiff step
+    batch = make_agent_batch(splits, dev)
+    Xt, Yt = torch.as_tensor(X, device=dev), torch.as_tensor(Y, device=dev)
+    theta, psi = torch.as_tensor(res.theta, device=dev), torch.as_tensor(res.psi, device=dev)
+    folds = kfold_pad_indices(N_SAMPLES, cfg.cv_folds, cfg.seed, dev)
+    steps = {m: make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
+                               compute_cond=False, grad_method=m)
+             for m in ("autodiff", "central")}
+
+    def iteration(m):
+        def run():
+            out = steps[m](theta, psi, batch)
+            cv_fold_scores_impl(spec, Xt, Yt, out.z, *folds, noise_std=cfg.noise_std)
+        return run
+
+    ad_ms, central_ms = _alternate_ms([iteration("autodiff"), iteration("central")], 5)
+    _, _, step_dev_ms, _, _, vjp_ms = _profiled(lambda: steps["autodiff"](theta, psi, batch),
+                                                 ("K1_vjp",))
+    vjp_dev_ms = vjp_ms["K1_vjp"]
+    print(f"phase 15b autodiff north star ({train_s:.2f} s) [{smi}]: {AUTODIFF_ITERS} iterations "
+          f"with grad_method=autodiff, launches {counts}; z dev {z_dev:.1e} (tol {Z_TOL}), CV-NLPD "
+          f"dev {cv_dev:.2e} (tol {NLPD_TOL}); iteration 1's gradient vs jax.value_and_grad: max "
           f"|diff| / max |g| = {g_dev:.2e} (tol {AUTODIFF_GRAD_TOL}); agent 1 "
           + ", ".join(f"{a:.4f}/{b:.4f}" for a, b in zip(g[0, :6], g_ref[0, :6]))
           + f" ...; the largest difference at agent {worst[0] + 1}, component {worst[1]}: "
-          f"{g[worst]:.5f} vs {g_ref[worst]:.5f}", flush=True)
+          f"{g[worst]:.5f} vs {g_ref[worst]:.5f}; one iteration (step + 5-fold CV, as train() "
+          f"runs it) autodiff {ad_ms:.3f} ms vs central {central_ms:.3f} ms; the autodiff step's "
+          f"device time {step_dev_ms:.3f} ms, of which the adjoint {vjp_dev_ms:.4f} ms "
+          f"({vjp_dev_ms / step_dev_ms:.1%})", flush=True)
     check(z_dev <= Z_TOL, f"autodiff z trajectory deviates {z_dev} > {Z_TOL}")
     check(cv_dev <= NLPD_TOL, f"autodiff CV-NLPD deviates {cv_dev} > {NLPD_TOL}")
     check(g_dev <= AUTODIFF_GRAD_TOL,
           f"autodiff gradient deviates {g_dev:.2e} > {AUTODIFF_GRAD_TOL} of its largest component")
-    return {"launches": counts["K1_vjp"], **vjp}
+    ns = vjp["by_shape"]["north star"]
+    return {"launches": counts["K1_vjp"], "max_abs_err": vjp["max_abs_err"],
+            "max_rel_err": vjp["max_rel_err"],
+            "max_rel_err_first_layout": vjp["max_rel_err_first_layout"],
+            **{k: ns[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                  "first_layout_ms", "first_layout_device_ms", "B")},
+            "by_shape": vjp["by_shape"],
+            "northstar_iteration_ms": {"autodiff": ad_ms, "central": central_ms},
+            "northstar_autodiff_step_device_ms": step_dev_ms,
+            "northstar_adjoint_device_ms_in_step": vjp_dev_ms}
+
+
+def config7_autodiff_phase(dev, smi: str, full, streamed_step_ms: float) -> dict:
+    """Phase 15c: config #7 with grad_method="autodiff". (a) The fixture
+    problem (1,111 samples over 8 agents, 3 iterations) held to
+    tests/fixtures/torch_port_config7_autodiff.json: agent NLLs at JAX's own
+    z within config7_nll_bars, iteration 1's gradient within
+    config7_autodiff_grad_bar of its largest component, z within Z_TOL over
+    the iterations both runs share. (b) Full width (``full``: phase 11b's 49,999
+    rows over 64 agents), C7_ITERS iterations: K3 twice an iteration (the
+    step's forward at 64 x 844 rows and the CV pass) and the adjoint once
+    (the step's backward), finite NLLs, z and gradients, iteration 1's
+    nll_sum against the JAX log's; the step timed beside phase 12's
+    streamed one, and the adjoint's device time within it. Returns the
+    record."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.driver import train
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.parallel.consensus import (
+        autodiff_nll_and_grad, make_admm_step, make_agent_batch)
+
+    spec = config7_spec()
+    P = spec.num_parameters
+    with open(CONFIG7_AUTODIFF_FIXTURE) as f:
+        ref = json.load(f)
+
+    def launches_ok(counts, res, iters, what):
+        rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
+        check(counts["K3"] == 2 * iters + rescores and counts["K1_vjp"] == iters
+              and sum(counts.values()) == counts["K3"] + counts["K1_vjp"],
+              f"{what} launches {counts}: want K3 = 2*{iters} + {rescores} (each step's forward "
+              f"and CV pass), K1_vjp = {iters} (each step's backward), no other kernel")
+        return rescores
+
+    # (a) the fixture problem
+    t0 = time.time()
+    X_tr, Y_tr, _, _, splits = config7_problem(C7_FIX_SAMPLES, C7_FIX_AGENTS)
+    check([len(x) for x, _ in splits] == ref["problem"]["shard_sizes"], "shard sizes differ")
+    cfg = config7_train_config(C7_FIX_ITERS, grad_method="autodiff", verbose=False)
+    K.reset_launch_counts()
+    res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    launches_ok(counts, res, C7_FIX_ITERS, "config #7 autodiff fixture")
+    iters = min(res.iterations, ref["iterations"])
+    z = np.array([h["consensus_params"] for h in res.cv_history])[:iters]
+    z_dev = float(np.abs(z - np.array(ref["z_trajectory"])[:iters]).max())
+    nll = config7_agent_nll_at(spec, splits, ref["z_trajectory"], dev, cfg.noise_std)
+    bars = config7_nll_bars(ref)
+    nll_dev = (np.abs(nll - ref["agent_nll"]) / np.abs(ref["agent_nll"])).max(axis=1)
+    z1 = torch.as_tensor(ref["iteration1_z"], dtype=torch.float64, device=dev)
+    g = autodiff_nll_and_grad(spec, make_agent_batch(splits, dev), M.wrap(z1), cfg.noise_std,
+                              compute_cond=False).grad.cpu().numpy()
+    g_ref = np.array(ref["iteration1_grad"])
+    g_dev = float(np.abs(g - g_ref).max() / np.abs(g_ref).max())
+    g_bar = config7_autodiff_grad_bar(ref)
+    cv = [h["consensus_cv_score"] for h in res.cv_history][:iters]
+    print(f"phase 15c config #7 autodiff, fixture problem ({time.time() - t0:.2f} s): "
+          f"{len(X_tr)} train rows over {C7_FIX_AGENTS} agents, {res.iterations} iterations, "
+          f"launches {counts}; z dev {z_dev:.1e} (tol {Z_TOL}); agent NLL rel dev at JAX's z "
+          f"{[f'{d:.2e}' for d in nll_dev]} (bars {[f'{b:.2e}' for b in bars]}); iteration 1's "
+          f"gradient vs jax.value_and_grad: max |diff| / max |g| = {g_dev:.2e} (bar "
+          f"{g_bar:.2e} = max({AUTODIFF_GRAD_TOL}, 2 x JAX's own spread)); CV-NLPD "
+          f"{[round(v, 4) for v in cv]} vs JAX "
+          f"{[round(v, 4) for v in ref['cv_nlpd'][:iters]]}", flush=True)
+    check(bool(np.all(np.isfinite(g))) and bool(np.all(np.isfinite(nll))),
+          "non-finite config #7 autodiff gradient or NLL")
+    check(z_dev <= Z_TOL, f"config #7 autodiff z deviates {z_dev} > {Z_TOL}")
+    check(bool(np.all(nll_dev <= bars)), f"config #7 autodiff agent NLLs {nll_dev} beyond {bars}")
+    check(g_dev <= g_bar, f"config #7 autodiff gradient deviates {g_dev:.2e} > {g_bar:.2e}")
+
+    # (b) full width
+    t0 = time.time()
+    X_tr, Y_tr, splits = full
+    cfg = config7_train_config(C7_ITERS, grad_method="autodiff", verbose=False)
+    K.reset_launch_counts()
+    t1 = time.time()
+    res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.time() - t1
+    counts = K.launch_counts()
+    launches_ok(counts, res, C7_ITERS, "config #7 autodiff at full width")
+    nll1 = res.nll_history[0]["total_nll"]
+    nll_rel = abs(nll1 - C7_NLL_ITER1) / C7_NLL_ITER1
+    check(np.all(np.isfinite(res.z)) and all(np.all(np.isfinite(h["agent_losses"]))
+                                             for h in res.nll_history),
+          "non-finite config #7 autodiff z or agent NLL")
+    step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
+                          compute_cond=False, grad_method="autodiff")
+    batch = make_agent_batch(splits, dev)
+    theta, psi = torch.as_tensor(res.theta, device=dev), torch.as_tensor(res.psi, device=dev)
+    out = step(theta, psi, batch)
+    check(bool(torch.isfinite(out.theta).all()) and bool(torch.isfinite(out.nll).all()),
+          "non-finite config #7 autodiff step")
+    step_ms = _cuda_time_ms(lambda: step(theta, psi, batch), 3)
+    _, _, step_dev_ms, _, _, vjp_ms = _profiled(lambda: step(theta, psi, batch), ("K1_vjp",))
+    vjp_dev_ms = vjp_ms["K1_vjp"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase 15c config #7 autodiff at full width ({time.time() - t0:.2f} s) [{smi}]: "
+          f"{len(X_tr)} train rows over {C7_AGENTS} agents, {C7_ITERS} iterations in "
+          f"{train_s:.2f} s, launches {counts}; iteration 1 nll_sum {nll1:.4f} vs JAX "
+          f"{C7_NLL_ITER1} (rel dev {nll_rel:.2e}, tol 1e-3); the autodiff step {step_ms:.1f} ms "
+          f"(device {step_dev_ms:.1f} ms, of which the adjoint at B={C7_AGENTS * C7_NMAX} "
+          f"{vjp_dev_ms:.3f} ms, {vjp_dev_ms / step_dev_ms:.1%}) vs the streamed step "
+          f"{streamed_step_ms:.1f} ms (phase 12, this call); peak allocated {peak:.2f} GiB",
+          flush=True)
+    check(nll_rel <= 1e-3, f"config #7 autodiff iteration 1 nll_sum {nll1}: rel {nll_rel}")
+    return {"launches": counts["K1_vjp"], "step_ms": step_ms, "step_device_ms": step_dev_ms,
+            "adjoint_device_ms_in_step": vjp_dev_ms, "streamed_step_ms": streamed_step_ms,
+            "fixture": {"z_dev": z_dev, "nll_rel_dev": nll_dev.tolist(), "grad_dev": g_dev,
+                        "grad_bar": g_bar}}
 
 
 def main(argv=None) -> int:
@@ -1677,6 +1976,9 @@ def main(argv=None) -> int:
     ap.add_argument("--states", action="store_true",
                     help="phases 1, 2, 6 and K2's and K4's times only, without the "
                          "result lines")
+    ap.add_argument("--vjp", action="store_true",
+                    help="phases 1, 2 and 15a (the adjoint kernel against its plain version "
+                         "and its first layout, and their times) only, without the result lines")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1708,30 +2010,30 @@ def main(argv=None) -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.time()
-    builds = build_kernels(K.SOURCES)
+    builds = build_kernels(K.SOURCES + (FIRST_LAYOUT_VJP,))
     for src in K.SOURCES:
         K._library(src)
+    _first_layout_library()
     warp_sources = {"K1": K.SOURCE, "K2": K.STATES_SOURCE, "K3": K.FEATURES_FUSED_SOURCE,
-                    "K4": K.FUSED_SOURCE}
+                    "K4": K.FUSED_SOURCE, "vjp": K.VJP_SOURCE}
     regs = {}
     for name, src in warp_sources.items():
         log = builds[src][1]
         regs[name] = warp_ptxas(log, WARP_KERNELS[name])
-        check(not log or set(regs[name]) == set(WARP_QUBITS),
-              f"ptxas reported {name} instantiations {sorted(regs[name])}, want "
-              f"{list(WARP_QUBITS)}")
-        check(all(info[1:] == (0, 0, 0) for info in regs[name].values()),
-              f"{name} uses a stack frame or spills: {regs[name]}")
     fid_circuit = build_circuit("kyriienko", FID_QUBITS, 1, FID_LAYERS)
     main_circuit = northstar_spec().circuit
-    # each warp kernel's geometry at its path's circuit: (geometry, qubits, path)
-    geos = {"K1": (K.features_geometry(main_circuit), NUM_QUBITS, "the north star"),
-            "K2": (K.states_geometry(fid_circuit), FID_QUBITS, "config #5"),
-            "K3": (K.fused_geometry(config7_spec().circuit), C7_QUBITS, "config #7"),
-            "K4": (K.fused_geometry(fid_circuit), FID_QUBITS, "config #5")}
-    per_sm = {name: K.blocks_per_sm(name, geo, n) for name, (geo, n, _) in geos.items()}
+    # each warp kernel's geometry at its paths' circuits: (kernel, geometry, qubits, path)
+    c7_circuit = config7_spec().circuit
+    geos = [("K1", K.features_geometry(main_circuit), NUM_QUBITS, "the north star"),
+            ("K2", K.states_geometry(fid_circuit), FID_QUBITS, "config #5"),
+            ("K3", K.fused_geometry(c7_circuit), C7_QUBITS, "config #7"),
+            ("K4", K.fused_geometry(fid_circuit), FID_QUBITS, "config #5"),
+            ("vjp", K.vjp_geometry(main_circuit), NUM_QUBITS, "the north star"),
+            ("vjp", K.vjp_geometry(fid_circuit), FID_QUBITS, "config #5"),
+            ("vjp", K.vjp_geometry(c7_circuit), C7_QUBITS, "config #7")]
+    per_sm = [K.blocks_per_sm(name, geo, n) for name, geo, n, _ in geos]
     print(f"phase 2 build ({time.time() - t0:.2f} s): "
-          + " | ".join(builds[src][0] for src in K.SOURCES)
+          + " | ".join(builds[src][0] for src in K.SOURCES + (FIRST_LAYOUT_VJP,))
           + " | ptxas by qubit count (registers, stack B, spill stores B, spill loads B): "
           + "; ".join(f"{name}: " + (", ".join(f"{n}: {info}" for n, info in r.items())
                                      or "reused") for name, r in regs.items())
@@ -1739,9 +2041,15 @@ def main(argv=None) -> int:
               f"{name} at {path}'s circuit ({n} qubits): "
               f"{geo.threads} threads per block, {geo.lanes} lanes a sample, {geo.samples} "
               f"samples a block, {geo.smem_bytes} B dynamic shared memory (C {geo.c_bytes} B), "
-              f"{per_sm[name]} blocks an SM ({per_sm[name] * geo.threads // 32} warps)"
-              for name, (geo, n, path) in geos.items()), flush=True)
-    check(all(v >= 1 for v in per_sm.values()), f"a warp kernel does not fit an SM: {per_sm}")
+              f"{k} blocks an SM ({k * geo.threads // 32} warps)"
+              for (name, geo, n, path), k in zip(geos, per_sm)), flush=True)
+    for name, src in warp_sources.items():  # after the report, which names what failed
+        check(not builds[src][1] or set(regs[name]) == set(WARP_QUBITS),
+              f"ptxas reported {name} instantiations {sorted(regs[name])}, want "
+              f"{list(WARP_QUBITS)}")
+        check(all(info[1:] == (0, 0, 0) for info in regs[name].values()),
+              f"{name} uses a stack frame or spills: {regs[name]}")
+    check(all(v >= 1 for v in per_sm), f"a warp kernel does not fit an SM: {per_sm}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -1759,7 +2067,9 @@ def main(argv=None) -> int:
     if args.states:
         check_states(rand_angles)
         time_states(rand_angles, smi)
-    if args.k1 or args.k3 or args.states:
+    if args.vjp:
+        check_vjp(rand_angles)
+    if args.k1 or args.k3 or args.states or args.vjp:
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
@@ -1979,7 +2289,7 @@ def main(argv=None) -> int:
     chained = chained_phase(dev, smi, fid)
     adjoint = autodiff_phase(dev, smi, rand_angles)
 
-    k3 = config7_phases(dev, smi, rand_angles)
+    k3, adjoint7 = config7_phases(dev, smi, rand_angles)
 
     print(json.dumps({"kernels": [
         {"name": "pauli_features (K1)", "route": "cuda",
@@ -2009,7 +2319,8 @@ def main(argv=None) -> int:
          "replaces": "dqgp_tpu/parallel/consensus.py:157",
          "replaces_note": "jax.value_and_grad through the XLA engine: the Pallas kernels "
                           "have no VJP, so there is no TPU kernel",
-         **adjoint, "library_ms": None},
+         **adjoint, "library_ms": None, "launches_config7": adjoint7["launches"],
+         "config7_autodiff": adjoint7},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

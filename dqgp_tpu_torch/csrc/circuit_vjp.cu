@@ -18,241 +18,319 @@
 // lambda, then walks the gates backwards: the gradient of gate j, then
 // U_j^H = U_j(-a_j) (H, CX and CZ are their own inverses) on both states.
 // The JAX package has no such kernel: its Pallas kernels have no VJP, and
-// its autodiff gradient differentiates its XLA statevector engine.
+// its autodiff gradient differentiates its XLA statevector engine
+// (dqgp_tpu/parallel/consensus.py:145-160).
 //
-// Design: the layout of statevector.cuh's float64 gate loop, in float32.
-// One thread runs one sample; its two states (phi and lambda) live in
-// shared memory as [amplitude][thread] planes, so the threads of a warp
-// touch consecutive words at every step, and the block's angle rows are
-// staged with coalesced loads at an odd stride. The backward pass writes
-// each gate's gradient over its (no longer needed) angle, and the block
-// stores its gradient rows coalesced at the end. Threads per block halve
-// from 128 until the states fit the shared-memory budget
-// (ops/cuda_circuit.py::vjp_launch_config). Trig is sincosf.
+// What bounds it on this card: operations. A sample costs about three
+// passes of the gate sequence (forward, then the inverse on two states),
+// the generators' inner products and the seed: 1.48e6 operations at config
+// #7's circuit (10 qubits, G=70) against 8.6 KB of angles, cotangent and
+// gradient, so the autodiff step's B=54,016 launch is bound at ~1.2 ms by
+// the FP32 rate. At the north star's B=1,040, 4 qubits, it is latency: 33
+// warps, each lane walking its sample's 40 gates three times back to back.
+//
+// Design (warp_vjp_kernel): the register layout of the forward kernels
+// (warp_state.cuh). A sample's two states, phi and lambda, live in
+// registers across a lane group (a lane a sample at n <= 5, 2^(n-5) lanes
+// above, a whole warp at 10 qubits): 64 floats a state a lane from 5
+// qubits up, 128 for the two, so those instantiations ask for one block an
+// SM (255 registers a thread) and those up to 4 qubits for two. The forward
+// sequence is run_gate_batch's, with its staging of the angle rows; the
+// backward walk applies each inverse gate to both states through
+// apply_gate_cs, with one sin_cos a gate for the two. A gate's gradient
+// is a lane's partial of Im <lambda|P|phi> (over register pairs, or with
+// the partner lane's phi by __shfl_xor_sync where the target is a lane
+// bit; diagonal generators need no partner). Where a lane holds a sample it
+// writes the gradient over the gate's angle in the staged row; where a
+// sample spans lanes, each lane keeps its partials in shared memory and
+// the group's sums are taken once after the walk, over the angles. The warp
+// then stores its samples' gradient rows as one coalesced run. The
+// features variant seeds lambda from the cotangent with qubit q on bit q
+// (K1's map); the states variant reads the state's cotangent in K2's map
+// (qubits 0..n-6 on the lane bits) and walks K2's gate table, so that the
+// lanes of a sample read consecutive amplitudes. Templated on n (1..10); no register array is
+// indexed at run time. Trig is warp_state.cuh's sin_cos.
 //
 // Interface: plain C, loaded with ctypes. The launch returns
 // cudaGetLastError(), which the Python wrapper checks.
 
 #include <cuda_runtime.h>
 
+#include "warp_state.cuh"
+
 namespace {
 
-// Gate kinds, as in dqgp_tpu_torch/ops/circuit.py.
-enum { RX = 0, RY, RZ, H, CX, CZ, CRX, CRY, CRZ, RZZ };
+using namespace dqgp::warp;
 
-constexpr float kSqrt1_2 = 0.70710678118654752f;
+// Resident blocks an SM that each instantiation asks of ptxas: up to 4
+// qubits the two states are at most 64 registers and two blocks of
+// kMaxThreads fit (128 registers a thread); from 5 qubits up they are 128,
+// and one block takes up to 255 registers a thread.
+template <int N>
+struct VjpMinBlocks {
+  static constexpr int value = N <= 4 ? 2 : 1;
+};
 
-__device__ __forceinline__ bool has_angle(int kind) {
-  return kind != H && kind != CX && kind != CZ;
+// A generator's sum over a lane's registers runs in kAccs independent
+// partial sums, so that its adds do not wait on each other.
+constexpr int kAccs = 4;
+
+__device__ __forceinline__ float sum_accs(const float (&acc)[kAccs]) {
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
-// Apply one gate (its half angle's cosine c and sine s) to the state whose
-// amplitude k lies at re[k * stride], im[k * stride]. With -s in place of s
-// a rotation applies its inverse.
-__device__ inline void apply_gate(float* re, float* im, int stride, int kind, int q,
-                                  int ctl, float c, float s, int n) {
-  const int dim = 1 << n;
-  if (kind == CZ || kind == RZZ) {
-    for (int k = 0; k < dim; ++k) {
-      const int bq = (k >> q) & 1, bc = (k >> ctl) & 1;
-      float* pr = re + k * stride;
-      float* pi = im + k * stride;
-      if (kind == CZ) {
-        if (bq & bc) { *pr = -*pr; *pi = -*pi; }
-      } else {
-        // exp(-i a/2 * sgn), sgn = +1 where the bits agree.
-        const float sg = (bq == bc) ? s : -s;
-        const float r0 = *pr, i0 = *pi;
-        *pr = c * r0 + sg * i0;
-        *pi = c * i0 - sg * r0;
-      }
+// Im <lambda | X phi> (Y = false) or Im <lambda | Y phi> (Y = true) over the
+// amplitudes of this lane that the control lets through, the target on bit
+// q: amplitude k meets phi at k with bit q flipped, in this lane's
+// registers (a register bit) or the partner lane's (a lane bit). For Y,
+// (Y phi)_k = -i phi_{k'} where bit q of k is clear and +i phi_{k'} where
+// it is set.
+template <int N, bool Y, int Q = 0>
+__device__ __forceinline__ float generator_xy(const float (&pr)[Geometry<N>::kA],
+                                              const float (&pi)[Geometry<N>::kA],
+                                              const float (&lr)[Geometry<N>::kA],
+                                              const float (&li)[Geometry<N>::kA],
+                                              int q, int lig, Control c) {
+  using Geo = Geometry<N>;
+  if constexpr (Q < Geo::kRegBits) {
+    if (q != Q) return generator_xy<N, Y, Q + 1>(pr, pi, lr, li, q, lig, c);
+    float acc[kAccs] = {};
+#pragma unroll
+    for (int r = 0; r < Geo::kA; ++r) {
+      const int o = r ^ (1 << Q);
+      const float t = Y ? (((r >> Q) & 1) ? 1.f : -1.f) * (lr[r] * pr[o] + li[r] * pi[o])
+                        : lr[r] * pi[o] - li[r] * pr[o];
+      if (c.lane_ok && (r & c.reg_mask) == c.reg_mask) acc[r % kAccs] += t;
     }
-    return;
-  }
-  const int lo = (1 << q) - 1;
-  for (int p = 0; p < (dim >> 1); ++p) {
-    const int k0 = ((p >> q) << (q + 1)) | (p & lo);
-    const int k1 = k0 | (1 << q);
-    if (ctl >= 0 && !((k0 >> ctl) & 1)) continue;  // control bit clear
-    float* pr0 = re + k0 * stride;
-    float* pi0 = im + k0 * stride;
-    float* pr1 = re + k1 * stride;
-    float* pi1 = im + k1 * stride;
-    const float r0 = *pr0, i0 = *pi0, r1 = *pr1, i1 = *pi1;
-    switch (kind) {
-      case RX: case CRX:  // [[c, -is], [-is, c]]
-        *pr0 = c * r0 + s * i1;  *pi0 = c * i0 - s * r1;
-        *pr1 = c * r1 + s * i0;  *pi1 = c * i1 - s * r0;
-        break;
-      case RY: case CRY:  // [[c, -s], [s, c]]
-        *pr0 = c * r0 - s * r1;  *pi0 = c * i0 - s * i1;
-        *pr1 = s * r0 + c * r1;  *pi1 = s * i0 + c * i1;
-        break;
-      case RZ: case CRZ:  // diag(e^{-ia/2}, e^{+ia/2})
-        *pr0 = c * r0 + s * i0;  *pi0 = c * i0 - s * r0;
-        *pr1 = c * r1 - s * i1;  *pi1 = c * i1 + s * r1;
-        break;
-      case H:
-        *pr0 = (r0 + r1) * kSqrt1_2;  *pi0 = (i0 + i1) * kSqrt1_2;
-        *pr1 = (r0 - r1) * kSqrt1_2;  *pi1 = (i0 - i1) * kSqrt1_2;
-        break;
-      case CX:
-        *pr0 = r1;  *pi0 = i1;  *pr1 = r0;  *pi1 = i0;
-        break;
+    return sum_accs(acc);
+  } else if constexpr (Geo::kL > 1) {
+    const int m = 1 << (q - 5);
+    const float sign = (lig & m) ? 1.f : -1.f;
+    float acc[kAccs] = {};
+#pragma unroll
+    for (int r = 0; r < Geo::kA; ++r) {
+      const float ppr = __shfl_xor_sync(kFullMask, pr[r], m, Geo::kL);
+      const float ppi = __shfl_xor_sync(kFullMask, pi[r], m, Geo::kL);
+      const float t = Y ? sign * (lr[r] * ppr + li[r] * ppi) : lr[r] * ppi - li[r] * ppr;
+      if (c.lane_ok && (r & c.reg_mask) == c.reg_mask) acc[r % kAccs] += t;
     }
+    return sum_accs(acc);
+  } else {
+    return 0.f;
   }
 }
 
-// Im <lambda | P | phi> for the generator P of a gate with an angle.
-__device__ inline float generator_im(const float* pr, const float* pi, const float* lr,
-                                     const float* li, int stride, int kind, int q, int ctl,
-                                     int n) {
-  const int dim = 1 << n;
-  float acc = 0.f;
-  if (kind == RZZ) {
-    for (int k = 0; k < dim; ++k) {
-      const float t = lr[k * stride] * pi[k * stride] - li[k * stride] * pr[k * stride];
-      acc += (((k >> q) ^ (k >> ctl)) & 1) ? -t : t;
-    }
-    return acc;
+// Im <lambda | P phi> for a diagonal generator over this lane's amplitudes:
+// Z on bit q where the control lets through (RZ, CRZ), or Z (x) Z on bits q
+// and ctl (RZZ): +1 where the bits agree, -1 where they differ.
+template <int N>
+__device__ __forceinline__ float generator_diag(const float (&pr)[Geometry<N>::kA],
+                                                const float (&pi)[Geometry<N>::kA],
+                                                const float (&lr)[Geometry<N>::kA],
+                                                const float (&li)[Geometry<N>::kA],
+                                                bool zz, int q, int ctl, int lig) {
+  const Bit bq = make_bit(q, lig);
+  const Bit bc = make_bit(zz ? ctl : q, lig);
+  const Control on = make_control(zz ? -1 : ctl, lig);
+  float acc[kAccs] = {};
+#pragma unroll
+  for (int r = 0; r < Geometry<N>::kA; ++r) {
+    const bool one_q = bq.lane_set || (r & bq.reg_mask) != 0;
+    const bool one_c = bc.lane_set || (r & bc.reg_mask) != 0;
+    const float t = lr[r] * pi[r] - li[r] * pr[r];
+    const bool minus = zz ? one_q != one_c : one_q;
+    if (on.lane_ok && (r & on.reg_mask) == on.reg_mask) acc[r % kAccs] += minus ? -t : t;
   }
-  const int lo = (1 << q) - 1;
-  for (int p = 0; p < (dim >> 1); ++p) {
-    const int k0 = ((p >> q) << (q + 1)) | (p & lo);
-    const int k1 = k0 | (1 << q);
-    if (ctl >= 0 && !((k0 >> ctl) & 1)) continue;
-    const float p0r = pr[k0 * stride], p0i = pi[k0 * stride];
-    const float p1r = pr[k1 * stride], p1i = pi[k1 * stride];
-    const float l0r = lr[k0 * stride], l0i = li[k0 * stride];
-    const float l1r = lr[k1 * stride], l1i = li[k1 * stride];
-    switch (kind) {
-      case RX: case CRX:  // X phi = (phi1, phi0)
-        acc += l0r * p1i - l0i * p1r + l1r * p0i - l1i * p0r;
-        break;
-      case RY: case CRY:  // Y phi = (-i phi1, i phi0)
-        acc += -l0r * p1r - l0i * p1i + l1r * p0r + l1i * p0i;
-        break;
-      default:            // RZ, CRZ: Z phi = (phi0, -phi1)
-        acc += l0r * p0i - l0i * p0r - l1r * p1i + l1i * p1r;
-        break;
-    }
-  }
-  return acc;
+  return sum_accs(acc);
 }
 
-// mode 0: cot points at the (B, 3n) feature cotangent [X | Y | Z]; mode 1:
-// at the (B, 2^n) complex64 state cotangent as (re, im) pairs. grad points
-// at the (B, G) float32 output.
-__global__ void circuit_vjp_kernel(const float* __restrict__ angles,
-                                   const int* __restrict__ gates,
-                                   const float* __restrict__ cot,
-                                   float* __restrict__ grad, int B, int G, int n,
-                                   int mode, int gstride) {
-  extern __shared__ __align__(16) float smem[];
-  const int tpb = blockDim.x;
-  const int tid = threadIdx.x;
-  const int dim = 1 << n;
-  float* pr = smem + tid;                    // phi, [dim][tpb]
-  float* pi = pr + (size_t)dim * tpb;
-  float* lr = pi + (size_t)dim * tpb;        // lambda, [dim][tpb]
-  float* li = lr + (size_t)dim * tpb;
-  float* rows = smem + (size_t)4 * dim * tpb;  // [tpb][gstride]
-
-  const long long b0 = (long long)blockIdx.x * tpb;
-  const int nrows = (int)min((long long)tpb, (long long)B - b0);
-  for (int i = tid; i < nrows * G; i += tpb) {
-    const int r = i / G;
-    rows[r * gstride + (i - r * G)] = angles[b0 * G + i];
-  }
-  __syncthreads();
-
-  if (tid < nrows) {
-    float* a = rows + tid * gstride;
-    const long long b = b0 + tid;
-    for (int k = 0; k < dim; ++k) {
-      pr[k * tpb] = (k == 0) ? 1.f : 0.f;
-      pi[k * tpb] = 0.f;
-    }
-    for (int g = 0; g < G; ++g) {
-      const int kind = __ldg(gates + 3 * g);
-      float c = 1.f, s = 0.f;
-      if (has_angle(kind)) sincosf(0.5f * a[g], &s, &c);
-      apply_gate(pr, pi, tpb, kind, __ldg(gates + 3 * g + 1), __ldg(gates + 3 * g + 2), c, s, n);
-    }
-
-    // lambda_G
-    if (mode == 0) {
-      for (int k = 0; k < dim; ++k) {
-        lr[k * tpb] = 0.f;
-        li[k * tpb] = 0.f;
-      }
-      const float* g3 = cot + b * 3 * n;
-      for (int q = 0; q < n; ++q) {
-        const float gx = 2.f * g3[q], gy = 2.f * g3[n + q], gz = 2.f * g3[2 * n + q];
-        const int lo = (1 << q) - 1;
-        for (int p = 0; p < (dim >> 1); ++p) {
-          const int k0 = ((p >> q) << (q + 1)) | (p & lo);
-          const int k1 = k0 | (1 << q);
-          const float p0r = pr[k0 * tpb], p0i = pi[k0 * tpb];
-          const float p1r = pr[k1 * tpb], p1i = pi[k1 * tpb];
-          lr[k0 * tpb] += gx * p1r + gy * p1i + gz * p0r;
-          li[k0 * tpb] += gx * p1i - gy * p1r + gz * p0i;
-          lr[k1 * tpb] += gx * p0r - gy * p0i - gz * p1r;
-          li[k1 * tpb] += gx * p0i + gy * p0r - gz * p1i;
-        }
+// lambda += 2 (gx X_q + gy Y_q + gz Z_q) phi for every qubit q (qubit q on
+// bit q), (gx, gy, gz) the sample's feature cotangent c3 = [X | Y | Z], or
+// zero where the sample does not exist.
+template <int N, int Q = 0>
+__device__ __forceinline__ void seed_features(const float (&pr)[Geometry<N>::kA],
+                                              const float (&pi)[Geometry<N>::kA],
+                                              float (&lr)[Geometry<N>::kA],
+                                              float (&li)[Geometry<N>::kA], int lig,
+                                              const float* __restrict__ c3, bool here) {
+  using Geo = Geometry<N>;
+  if constexpr (Q < N) {
+    const float gx = here ? 2.f * __ldg(c3 + Q) : 0.f;
+    const float gy = here ? 2.f * __ldg(c3 + N + Q) : 0.f;
+    const float gz = here ? 2.f * __ldg(c3 + 2 * N + Q) : 0.f;
+    if constexpr (Q < Geo::kRegBits) {
+#pragma unroll
+      for (int p = 0; p < Geo::kA / 2; ++p) {
+        const int k0 = ((p >> Q) << (Q + 1)) | (p & ((1 << Q) - 1));
+        const int k1 = k0 | (1 << Q);
+        const float p0r = pr[k0], p0i = pi[k0], p1r = pr[k1], p1i = pi[k1];
+        lr[k0] += gx * p1r + gy * p1i + gz * p0r;
+        li[k0] += gx * p1i - gy * p1r + gz * p0i;
+        lr[k1] += gx * p0r - gy * p0i - gz * p1r;
+        li[k1] += gx * p0i + gy * p0r - gz * p1i;
       }
     } else {
-      const float2* st = reinterpret_cast<const float2*>(cot) + b * dim;
-      for (int k = 0; k < dim; ++k) {
-        const float2 v = st[k];
-        lr[k * tpb] = v.x;
-        li[k * tpb] = v.y;
+      // this lane holds the amplitude with bit q clear (Y phi = -i phi') or
+      // set (Y phi = +i phi', Z phi = -phi); the partner lane the other
+      constexpr int m = 1 << (Q - 5);
+      const bool hi = (lig & m) != 0;
+      const float ys = hi ? -gy : gy, zs = hi ? -gz : gz;
+#pragma unroll
+      for (int r = 0; r < Geo::kA; ++r) {
+        const float ppr = __shfl_xor_sync(kFullMask, pr[r], m, Geo::kL);
+        const float ppi = __shfl_xor_sync(kFullMask, pi[r], m, Geo::kL);
+        lr[r] += gx * ppr + ys * ppi + zs * pr[r];
+        li[r] += gx * ppi - ys * ppr + zs * pi[r];
       }
+    }
+    seed_features<N, Q + 1>(pr, pi, lr, li, lig, c3, here);
+  }
+}
+
+// lambda = the state's cotangent, read in the states kernels' map:
+// amplitude k of the sample's row is register k >> (N-5) of lane k & (L-1)
+// (register k of the one lane at N <= 5), so for each register the lanes of
+// a sample read consecutive complex64.
+template <int N>
+__device__ __forceinline__ void seed_states(float (&lr)[Geometry<N>::kA],
+                                            float (&li)[Geometry<N>::kA], int lig,
+                                            const float2* __restrict__ st, bool here) {
+  using Geo = Geometry<N>;
+#pragma unroll
+  for (int r = 0; r < Geo::kA; ++r) {
+    const float2 v = here ? __ldg(st + r * Geo::kL + lig) : make_float2(0.f, 0.f);
+    lr[r] = v.x;
+    li[r] = v.y;
+  }
+}
+
+// cot points at the (B, 3N) float32 feature cotangent (states = 0) or at the
+// (B, 2^N) complex64 state cotangent (states = 1), grad at the (B, G)
+// float32 output; gates is the (G, 3) table under the matching bit map.
+template <int N>
+__global__ void __launch_bounds__(kMaxThreads, VjpMinBlocks<N>::value)
+warp_vjp_kernel(const float* __restrict__ angles, const int* __restrict__ gates,
+                const float* __restrict__ cot, float* __restrict__ grad, int B, int G,
+                int states) {
+  using Geo = Geometry<N>;
+  run_gate_batch<N>(angles, gates, B, G,
+                    [=](const float (&re)[Geo::kA], const float (&im)[Geo::kA], int lig,
+                        int b, const Staged& st) {
+    const bool here = b < B;
+    float pr[Geo::kA], pi[Geo::kA], lr[Geo::kA], li[Geo::kA];
+#pragma unroll
+    for (int r = 0; r < Geo::kA; ++r) {
+      pr[r] = re[r];
+      pi[r] = im[r];
+      lr[r] = 0.f;
+      li[r] = 0.f;
+    }
+    if (states) {
+      seed_states<N>(lr, li, lig, reinterpret_cast<const float2*>(cot) + (long long)b * Geo::kDim,
+                     here);
+    } else {
+      seed_features<N>(pr, pi, lr, li, lig, cot + (long long)b * (3 * N), here);
     }
 
-    for (int g = G - 1; g >= 0; --g) {
-      const int kind = __ldg(gates + 3 * g);
-      const int q = __ldg(gates + 3 * g + 1);
-      const int ctl = __ldg(gates + 3 * g + 2);
-      float d = 0.f, c = 1.f, s = 0.f;
+    const int lane = threadIdx.x & 31;
+    // Where a sample spans lanes, a gate's gradient is a sum over the lane
+    // group: each lane keeps its partial of every gate in shared memory (G
+    // words at an odd stride from the next lane's; the launch adds a warp's
+    // 32 x (G | 1) words to the block) until the walk ends.
+    float* part = st.scratch + (threadIdx.x >> 5) * 32 * st.rstride + lane * st.rstride;
+    for (int j = G - 1; j >= 0; --j) {
+      const int* gate = st.gates + kGateFields * j;
+      const int kind = gate[0], q = gate[1], ctl = gate[2];
+      const float a = st.row[j];
+      float d = 0.f;
       if (has_angle(kind)) {
-        d = 0.5f * generator_im(pr, pi, lr, li, tpb, kind, q, ctl, n);
-        sincosf(0.5f * a[g], &s, &c);
+        if (kind == RZ || kind == CRZ || kind == RZZ) {
+          d = generator_diag<N>(pr, pi, lr, li, kind == RZZ, q, ctl, lig);
+        } else if (kind == RY || kind == CRY) {
+          d = generator_xy<N, true>(pr, pi, lr, li, q, lig, make_control(ctl, lig));
+        } else {
+          d = generator_xy<N, false>(pr, pi, lr, li, q, lig, make_control(ctl, lig));
+        }
       }
-      if (g > 0) {
-        apply_gate(pr, pi, tpb, kind, q, ctl, c, -s, n);
-        apply_gate(lr, li, tpb, kind, q, ctl, c, -s, n);
+      if (j > 0) {  // U_j^H on both states
+        float s = 0.f, c = 1.f;
+        if (has_angle(kind)) sin_cos(0.5f * a, &s, &c);
+        apply_gate_cs<N>(pr, pi, kind, q, ctl, c, -s, lig);
+        apply_gate_cs<N>(lr, li, kind, q, ctl, c, -s, lig);
       }
-      a[g] = d;
+      if constexpr (Geo::kL > 1) {
+        part[j] = d;
+      } else {  // a lane's own sample: the gradient over the gate's angle
+        st.row[j] = 0.5f * d;
+      }
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < nrows * G; i += tpb) {
-    const int r = i / G;
-    grad[b0 * G + i] = rows[r * gstride + (i - r * G)];
-  }
+    __syncwarp();
+    if constexpr (Geo::kL > 1) {
+      // each of the warp's samples' G gradients: the sum of its L lanes'
+      // partials, written over the angles (consecutive lanes, consecutive
+      // gates: no bank conflicts at the odd stride)
+      const float* parts = st.scratch + (threadIdx.x >> 5) * 32 * st.rstride;
+      for (int i = lane; i < Geo::kSamples * G; i += 32) {
+        const int s = i / G, j = i - s * G;
+        float acc = 0.f;
+#pragma unroll
+        for (int l = 0; l < Geo::kL; ++l) acc += parts[(s * Geo::kL + l) * st.rstride + j];
+        st.rows[s * st.rstride + j] = 0.5f * acc;
+      }
+      __syncwarp();
+    }
+
+    // the warp's samples are consecutive: their G-word gradient rows are one
+    // run of the output, stored coalesced from the staged rows
+    const long long base = (long long)(b / Geo::kSamples) * Geo::kSamples * G;
+    const long long total = (long long)B * G;
+    const int words = Geo::kSamples * G;
+    for (int i = lane; i < words; i += 32) {
+      const int r = i / G;
+      if (base + i < total) grad[base + i] = st.rows[r * st.rstride + (i - r * G)];
+    }
+  });
 }
 
 }  // namespace
 
+#define DQGP_FOR_EACH_N(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
+
 extern "C" {
 
 // angles points at a (B, G) float32 tensor, gates at the (G, 3) int32 table
-// [kind, qubit, control] (qubit q on bit q), cot at the cotangent (mode 0:
-// (B, 3n) float32 features; mode 1: (B, 2^n) complex64 states), grad at a
+// [kind, bit, control bit] (qubit q on bit q for the features, the states
+// kernels' map for the states), cot at the cotangent (states = 0: (B, 3n)
+// float32 features; states = 1: (B, 2^n) complex64 states), grad at a
 // (B, G) float32 tensor. Returns cudaGetLastError().
 int dqgp_circuit_vjp(const float* angles, const int* gates, const float* cot, float* grad,
-                     int B, int G, int n, int mode, int tpb, int gstride,
-                     long long smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        circuit_vjp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-    if (e != cudaSuccess) return (int)e;
+                     int B, int G, int n, int states, int tpb, long long smem_bytes,
+                     void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n) {
+#define DQGP_CASE(N)                                                        \
+  case N:                                                                   \
+    return launch_persistent(warp_vjp_kernel<N>, Geometry<N>::kSamples, B, \
+                             tpb, smem_bytes, s, angles, gates, cot, grad,  \
+                             B, G, states);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
   }
-  const int blocks = (B + tpb - 1) / tpb;
-  circuit_vjp_kernel<<<blocks, tpb, (size_t)smem_bytes, (cudaStream_t)stream>>>(
-      angles, gates, cot, grad, B, G, n, mode, gstride);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks an SM holds of the n-qubit instantiation at this block
+// size and shared memory (-1 on error).
+int dqgp_circuit_vjp_blocks_per_sm(int n, int tpb, long long smem_bytes) {
+  switch (n) {
+#define DQGP_CASE(N) \
+  case N:            \
+    return blocks_per_sm(warp_vjp_kernel<N>, tpb, smem_bytes);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
+  }
+  return -1;
 }
 
 const char* dqgp_cuda_error_string(int code) {

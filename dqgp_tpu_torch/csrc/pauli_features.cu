@@ -72,7 +72,8 @@ warp_pauli_features_kernel(const float* __restrict__ angles,
   // the output row (4 MB at the north-star step: no staging for them)
   run_gate_batch<N>(angles, gates, B, G,
                     [out, B](const float (&re)[Geometry<N>::kA],
-                             const float (&im)[Geometry<N>::kA], int lig, int b) {
+                             const float (&im)[Geometry<N>::kA], int lig, int b,
+                             const Staged&) {
     reduce_features<N>(re, im, lig, out + (long long)b * (3 * N), b < B);
   });
 }

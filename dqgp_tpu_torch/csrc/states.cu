@@ -62,7 +62,8 @@ warp_states_kernel(const float* __restrict__ angles,
                    int B, int G) {
   run_gate_batch<N>(angles, gates, B, G,
                     [out, B](const float (&re)[Geometry<N>::kA],
-                             const float (&im)[Geometry<N>::kA], int lig, int b) {
+                             const float (&im)[Geometry<N>::kA], int lig, int b,
+                             const Staged&) {
     store_state<N>(re, im, lig, out + (long long)b * (2 * Geometry<N>::kDim), b < B);
   });
 }

@@ -22,16 +22,17 @@
   float32 only; ``warp_program.cuh``'s body, then the write-out.
 * ``circuit_vjp`` (``csrc/circuit_vjp.cu``) — the backward of K1 and K2:
   the angles' gradient (B, G) from the cotangent of the features or of the
-  states, float32, by adjoint differentiation (the state in shared memory,
-  as in ``statevector.cuh``). The JAX package has no counterpart kernel: its
-  Pallas kernels have no VJP. ``CircuitFunction`` makes the forward wrappers
-  differentiable with it.
+  states, float32, by adjoint differentiation (a sample's two states in
+  registers across a warp's lanes, ``csrc/warp_state.cuh``, the forward
+  batch loop K1 and K2 share, then the gates walked backwards). The JAX
+  package has no counterpart kernel: its Pallas kernels have no VJP.
+  ``CircuitFunction`` makes the forward wrappers differentiable with it.
 
 K1 (float32) and K3 take qubit q as bit q of the state's index in registers
 and lanes; the states kernels (K2 float32, K4) put the low qubits on the
 lanes so that a sample's lanes write consecutive amplitudes
-(``states_bit``). The kernels see only those physical bits: the tables built
-here carry the map.
+(``states_bit``); the adjoint takes each forward kernel's map. The kernels
+see only those physical bits: the tables built here carry the map.
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc at first
 use) and adds one to its launch count: ``.launches`` for the float32
@@ -84,7 +85,8 @@ _SIGNATURES = {
                    "dqgp_states_fused_blocks_per_sm": _OCCUPANCY_ARGS},
     FEATURES_FUSED_SOURCE: {"dqgp_pauli_features_fused": _FUSED_ARGS,
                             "dqgp_pauli_features_fused_blocks_per_sm": _OCCUPANCY_ARGS},
-    VJP_SOURCE: {"dqgp_circuit_vjp": [_vp] * 4 + [_i32] * 6 + [_i64, _vp]},
+    VJP_SOURCE: {"dqgp_circuit_vjp": [_vp] * 4 + [_i32] * 5 + [_i64, _vp],
+                 "dqgp_circuit_vjp_blocks_per_sm": _OCCUPANCY_ARGS},
 }
 # each warp kernel's (source, launch function, occupancy function)
 _WARP_KERNELS = {
@@ -93,6 +95,7 @@ _WARP_KERNELS = {
     "K3": (FEATURES_FUSED_SOURCE, "dqgp_pauli_features_fused",
            "dqgp_pauli_features_fused_blocks_per_sm"),
     "K4": (FUSED_SOURCE, "dqgp_states_fused", "dqgp_states_fused_blocks_per_sm"),
+    "vjp": (VJP_SOURCE, "dqgp_circuit_vjp", "dqgp_circuit_vjp_blocks_per_sm"),
 }
 
 
@@ -379,17 +382,19 @@ class WarpGeometry(NamedTuple):
 
 def _warp_geometry(num_qubits: int, table_words: int, c_bytes: int,
                    row_words: int, what: str, blocks_per_sm: int = 2,
-                   threads: int = _WARP_THREADS) -> WarpGeometry:
+                   threads: int = _WARP_THREADS,
+                   scratch_warp_words: int = 0) -> WarpGeometry:
     """A sample's state lives in registers over max(1, 2^(n-5)) lanes, so a
     warp works on 32 / lanes samples and no state is in shared memory. A
     block holds its int32 tables with the batch loop's two words (padded to
-    16 bytes), C and, per warp, one word and its samples' staged rows at an
-    odd stride. ``threads`` a block, halved until ``blocks_per_sm`` blocks
+    16 bytes), C and, per warp, one word, its samples' staged rows at an
+    odd stride and ``scratch_warp_words`` of the kernel's own (after every
+    warp's rows). ``threads`` a block, halved until ``blocks_per_sm`` blocks
     (the kernel's launch bound) fit an SM."""
     lanes = 1 << max(0, num_qubits - 5)
     per_warp = 32 // lanes
     fixed = 4 * ((table_words + 2 + 3) & ~3) + c_bytes
-    warp_bytes = 4 * (per_warp * (row_words | 1) + 1)
+    warp_bytes = 4 * (per_warp * (row_words | 1) + 1 + scratch_warp_words)
     budget = _WARP_SMEM_PER_SM // blocks_per_sm
     tpb = threads
     while tpb > 32 and fixed + tpb // 32 * warp_bytes > budget:
@@ -448,7 +453,7 @@ def features_geometry(circuit: Circuit) -> WarpGeometry:
 
 def blocks_per_sm(kernel: str, geo: WarpGeometry, num_qubits: int) -> int:
     """Resident blocks an SM holds of warp kernel ``kernel`` ("K1", "K2",
-    "K3" or "K4") at this geometry, as the CUDA occupancy calculator reckons it from
+    "K3", "K4" or "vjp") at this geometry, as the CUDA occupancy calculator reckons it from
     the build's registers and ``geo``'s shared memory (card only)."""
     source, _, fn = _WARP_KERNELS[kernel]
     return getattr(_library(source), fn)(num_qubits, geo.threads, geo.smem_bytes)
@@ -529,19 +534,28 @@ def pauli_features_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> 
 VJP_OUTPUTS = ("features", "states")
 
 
-def vjp_launch_config(num_qubits: int, num_gates: int) -> tuple[int, int, int]:
-    """(threads per block, padded angle-row stride, dynamic smem bytes) of
-    the adjoint kernel: a thread's two float32 states as [amplitude][thread]
-    re and im planes, and its angle row at an odd stride. Threads per block
-    halve from 128 until that fits."""
-    dim = 1 << num_qubits
-    gstride = num_gates | 1
+def vjp_min_blocks(num_qubits: int) -> int:
+    """Resident blocks an SM that the adjoint's instantiation for
+    ``num_qubits`` asks of the compiler (csrc/circuit_vjp.cu's
+    VjpMinBlocks): two where a lane's two states are at most 64 registers,
+    one above."""
+    return 2 if num_qubits <= 4 else 1
 
-    def smem(tpb):
-        return tpb * 4 * (4 * dim + gstride)
 
-    tpb = _threads_per_block(smem)
-    return tpb, gstride, smem(tpb)
+@functools.lru_cache(maxsize=128)
+def vjp_geometry(circuit: Circuit, blocks_per_sm: int = 0, threads: int = 0) -> WarpGeometry:
+    """The adjoint's launch geometry for ``circuit`` (csrc/circuit_vjp.cu):
+    K1's table and staged rows (the rows take the gradient in place of the
+    angles) and, where a sample spans lanes (n > 5), every lane's partial
+    gradients (32 x (G | 1) words a warp), sized for the blocks an SM the
+    instantiation asks for; up to 5 qubits, where a lane holds a sample,
+    128-thread blocks, as K1's. ``blocks_per_sm`` and ``threads`` (0: these
+    defaults) size a variant's launch."""
+    n, G = circuit.num_qubits, circuit.num_gates
+    return _warp_geometry(n, 3 * G, 0, G, "the adjoint's gate table, rows and partials",
+                          blocks_per_sm or vjp_min_blocks(n),
+                          threads or (_WARP_THREADS // 2 if n <= 5 else _WARP_THREADS),
+                          32 * (G | 1) if n > 5 else 0)
 
 
 def circuit_vjp_reference(circuit: Circuit, angles: torch.Tensor, cotangent: torch.Tensor,
@@ -576,12 +590,13 @@ def circuit_vjp(circuit: Circuit, angles: torch.Tensor, cotangent: torch.Tensor,
     if B == 0:
         return grad
     cot = cotangent.contiguous()
-    if output == "states":
+    states = output == "states"
+    if states:
         cot = torch.view_as_real(cot)
-    tpb, gstride, smem = vjp_launch_config(n, G)
+    geo = vjp_geometry(circuit)
     _launch(VJP_SOURCE, "dqgp_circuit_vjp", angles.device, angles.data_ptr(),
-            _gate_table(circuit, angles.device).data_ptr(), cot.data_ptr(), grad.data_ptr(),
-            B, G, n, VJP_OUTPUTS.index(output), tpb, gstride, smem)
+            _gate_table(circuit, angles.device, states).data_ptr(), cot.data_ptr(),
+            grad.data_ptr(), B, G, n, int(states), geo.threads, geo.smem_bytes)
     if output == "features":
         circuit_vjp.launches_features += 1
     else:

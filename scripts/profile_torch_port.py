@@ -6,6 +6,7 @@
     python scripts/profile_torch_port.py --cell fidelity --fusion on
     python scripts/profile_torch_port.py --cell northstar --chain 5
     python scripts/profile_torch_port.py --cond device   # cond in the step
+    python scripts/profile_torch_port.py --grad autodiff
 
 For each cell — ``northstar`` (chip_smoke.py phase 4's problem),
 ``fidelity`` (phase 7's, BASELINE config #5) and ``config7`` (phase 11b's,
@@ -21,6 +22,9 @@ switch (``config.use_fusion``; "on" puts the fused states kernel K4 in K2's
 place in the fidelity cell). ``--cond`` "host" (the default) runs the step
 as ``driver.train`` runs it on the card, without condition numbers (they
 are backfilled after training); "device" puts them in the step.
+``--grad`` replaces the cell's gradient (central for the north star and
+config #5, streamed for config #7) with "central", "streamed" or
+"autodiff" (the adjoint kernel is a group of its own).
 ``--chain K`` profiles the driver's chained dispatch instead: the step and
 CV pass of K iterations captured in one CUDA graph after a warm-up
 iteration, ``--iters`` replays profiled, the numbers given per iteration.
@@ -28,6 +32,7 @@ Needs a CUDA device; imports nothing of JAX.
 """
 
 import argparse
+import dataclasses
 import os
 import re
 import subprocess
@@ -44,9 +49,10 @@ import chip_smoke as cs  # noqa: E402
 
 CELLS = ("northstar", "fidelity", "config7")
 GROUPS = (  # first match wins
-    ("hand kernels (K1-K4, adjoint)",
+    ("adjoint kernel (K1's and K2's backward)", r"warp_vjp_kernel"),
+    ("hand kernels (K1-K4)",
      r"warp_pauli_features_kernel|pauli_features_kernel_f64|warp_states_kernel"
-     r"|states_kernel_f64|warp_features_kernel|warp_states_fused_kernel|circuit_vjp_kernel"),
+     r"|states_kernel_f64|warp_features_kernel|warp_states_fused_kernel"),
     ("eigh (condition numbers)", r"syev|sytrd|stedc|ormtr|steqr|sterf|latrd"),
     ("triangular solves", r"trsm|trsv|trtri"),
     ("Cholesky", r"potrf|potrs"),
@@ -75,7 +81,7 @@ def _problem(cell, dev):
     return spec, X_tr, Y_tr, splits, cs.FID_SEED
 
 
-def profile(cell, iters, dev, cond="host", chain=1):
+def profile(cell, iters, dev, cond="host", chain=1, grad=None):
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -86,6 +92,8 @@ def profile(cell, iters, dev, cond="host", chain=1):
     spec, X, Y, splits, seed = _problem(cell, dev)
     cfg = (cs.config7_train_config(1, verbose=False) if cell == "config7"
            else TrainConfig(verbose=False, seed=seed))
+    if grad:
+        cfg = dataclasses.replace(cfg, grad_method=grad)
     # the chunk's step flags failed factorizations, as the driver's does
     step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
                           compute_cond=cfg.compute_cond and cond == "device",
@@ -139,7 +147,7 @@ def profile(cell, iters, dev, cond="host", chain=1):
                 by_group[name] += us / 1e3 / iters
                 break
     device_ms = sum(by_group.values())
-    print(f"{cell} (cond {cond}, chain {chain}): wall {wall_ms:.3f} ms/iteration, "
+    print(f"{cell} ({cfg.grad_method} gradient, cond {cond}, chain {chain}): wall {wall_ms:.3f} ms/iteration, "
           f"device {device_ms:.3f} ms, "
           f"idle share {1 - device_ms / wall_ms:.3f}, "
           f"{n_kernels / iters:.0f} kernels/iteration")
@@ -159,6 +167,8 @@ def main() -> int:
                          "the card) or in the step (device)")
     ap.add_argument("--chain", type=int, default=1,
                     help="iterations a CUDA-graph replay (default 1: no graph)")
+    ap.add_argument("--grad", choices=("central", "streamed", "autodiff"), default=None,
+                    help="the gradient (default: the cell's own, central or streamed)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -173,7 +183,7 @@ def main() -> int:
     print(f"[{smi}] fusion {args.fusion}")
     for cell in (CELLS if args.cell == "all" else (args.cell,)):
         profile(cell, args.iters or (1 if cell == "config7" else 5), dev, args.cond,
-                args.chain)
+                args.chain, args.grad)
     return 0
 
 

@@ -107,6 +107,30 @@ def test_adjoint_kernel_matches_plain_on_card(cuda, enc, output):
             assert float((got - want).abs().max()) <= 5e-5 * max(1.0, float(want.abs().max()))
 
 
+@pytest.mark.parametrize("output", K1.VJP_OUTPUTS)
+def test_adjoint_kernel_at_config7_step_shape(cuda, output):
+    """The adjoint at config #7's autodiff step shape (chebyshev 10 qubits /
+    2 layers, B = 64 x 844 = 54,016: a warp a sample, every lane bit),
+    one launch, held to the plain version on the first and the last 2,048
+    rows (the plain autograd's saved states of all rows do not fit)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    c = build_circuit("chebyshev", 10, 2, 2)
+    B, rows = 64 * 844, 2048
+    a = _angles(gen, c, B, torch.float32)
+    if output == "features":
+        cot = torch.rand((B, 30), generator=gen, device=cuda) * 2 - 1
+    else:
+        cot = torch.randn((B, c.dim), generator=gen, device=cuda, dtype=torch.complex64)
+    before = K1.launch_counts()
+    got = K1.circuit_vjp(c, a, cot, output)
+    torch.cuda.synchronize()
+    key = "K1_vjp" if output == "features" else "K2_vjp"
+    assert K1.launch_counts()[key] == before[key] + 1
+    for r in (slice(0, rows), slice(B - rows, B)):
+        want = K1.circuit_vjp_reference(c, a[r], cot[r], output)
+        assert float((got[r] - want).abs().max()) <= 5e-5 * max(1.0, float(want.abs().max()))
+
+
 @pytest.mark.parametrize("kernel_type", ["projected", "fidelity"])
 def test_autodiff_step_runs_the_kernels_both_ways(cuda, kernel_type):
     """grad_method="autodiff" on the card: K1 (K2) forward and the adjoint
