@@ -8,15 +8,17 @@ Phases, one line each; any failure raises and exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds the Pauli-feature (K1), states (K2), fused
              Pauli-feature (K3) and fused states (K4) kernels and the
-             adjoint kernel (the backward of K1 and K2; and its first
-             layout, which phase 15a times beside it) for sm_90a, one nvcc
+             adjoint kernel (the backward of K1 and K2) for sm_90a, and the
+             first layouts that phases 9, 13, 15a and 16 time beside their
+             redesigns (the adjoint's; K1's and K2's float64), one nvcc
              each, all started together, with ptxas's register and
-             spill report; for each of the ten float32 instantiations (1-10
-             qubits) of K1, K2, K3, K4 and the adjoint its registers, stack
-             frame and spills, which must be 0 and 0; K1's geometry and
-             resident blocks an SM at the north star's circuit, K3's at
-             config #7's, K2's and K4's at config #5's, the adjoint's at
-             all three;
+             spill report; for each of the ten instantiations (1-10 qubits)
+             of K1 and K2 in float32 and float64, K3, K4 and the adjoint its
+             registers, stack frame and spills, which must be 0 and 0; K1's
+             geometry and resident blocks an SM at the north star's circuit
+             (float32 and float64), K1 float64's at config #7's, K3's at
+             config #7's, K2's (float32 and float64) and K4's at config
+             #5's, the adjoint's at all three;
 3. K1      — the kernel against its plain PyTorch version on the same CUDA
              tensors: 8 circuit families x every qubit count 1..10 (each
              instantiation, both sides of the register/lane split) x batch
@@ -31,7 +33,7 @@ Phases, one line each; any failure raises and exits non-zero:
              held-out rows. K1 must have run in every step, CV pass and
              predict, and K1's float64 instantiation in the condition-number
              backfill (``cond_mode="auto"`` is "host" on the card: one launch
-             an agent and 16 iterations); the z trajectory must stay within
+             an agent and 16-row chunk of z rows); the z trajectory must stay within
              5e-3 and every CV and test NLPD within 0.05 of the JAX float64
              reference (tests/fixtures/torch_port_northstar.json);
 4b. gate   — the same problem trained for the 25 iterations of the bench
@@ -58,7 +60,9 @@ Phases, one line each; any failure raises and exits non-zero:
              instantiation, both sides of the register/lane split) x batch
              {1, 130, 22500}, plus the fidelity path's shapes (kyriienko
              6 qubits / 1 layer, G=23, at 22500 step rows, 900 CV and
-             predict-train rows, 100 predict-test rows);
+             predict-train rows, 100 predict-test rows); every third float64
+             angle is one of F64_SPECIAL_ANGLES (+-1e6, +-1e15, +-1e300,
+             2^31, next to multiples of pi/2);
 7. fidelity — BASELINE config #5 (kyriienko 6 qubits / 1 layer, fidelity
              kernel) at the reference's 1-D size: the synthetic dataset
              generated on the card (its float64 Gram through K2's float64
@@ -78,11 +82,12 @@ Phases, one line each; any failure raises and exits non-zero:
              one's bound and share of it; K2 vs K4 at 4, 6, 8 and 10 qubits
              (kyriienko, 1 layer) at the same row count, in turns, with
              their bounds and, from the profiler, each kernel's own device
-             time beside K3's on the same program; K2 float64 vs plain
-             complex128 at B=1000, and the 900x900 fidelity Gram; the two
-             float64 kernels (K1 and K2, the shared-memory layout) at 10
-             qubits (kyriienko, 1 layer) at B=1000 and B=22500 against their
-             plain versions, with their float64 bounds;
+             time beside K3's on the same program; the 900x900 fidelity
+             Gram; the float64 kernels — K2 at the dataset's B=1000, K1 and
+             K2 at 10 qubits (kyriienko, 1 layer) at B=1000 and B=22500 —
+             each in turns with its first layout and its plain complex128
+             version (a call), the two kernels alone (profiler), and the
+             float64 bound;
 10. K3     — the fused Pauli-feature kernel against its plain version (the
              plain fused engine) and against K1's plain unfused version on
              the same CUDA tensors, max abs diff <= 8e-6: 8 families x
@@ -128,8 +133,8 @@ Phases, one line each; any failure raises and exits non-zero:
              (tests/fixtures/torch_port_driver_modes.json) within rtol 1e-6
              where cond < 1e8 and in the reference's 1e12/1e15 bucket above;
              the backfill's time, the device-mode floors beside the host
-             values, and the float64 kernels against their plain versions at
-             the backfill's shapes;
+             values, and the float64 kernels at the backfill's shapes in
+             turns with their first layouts and plain versions;
 14. chained — ``chain_iters``: the north star for 25 iterations in chunks
              of 5 and config #5 for 5 in one chunk, each a CUDA-graph replay
              of the chunk's steps and CV passes, against the same runs one
@@ -165,12 +170,24 @@ Phases, one line each; any failure raises and exits non-zero:
              config7_autodiff_grad_bar, z within 5e-3), then at full width
              (49,999 rows, 64 agents, 2 iterations: K3 twice and the adjoint
              once an iteration, iteration 1's nll_sum against the JAX log's)
-             and its step timed beside phase 12's streamed step.
+             and its step timed beside phase 12's streamed step;
+16. cond7  — config #7 at full width (phase 11b's 49,999 rows over 64
+             agents, 2 streamed iterations) with the CLI's defaults for the
+             condition numbers: compute_cond=True, cond_mode "auto" (= host
+             on the card). Its backfill makes exactly 64 x ceil(T/16) K1
+             float64 launches and no other; the condition numbers of 4
+             agents are held to the same backfill through the plain
+             complex128 engine (rtol 1e-6 below 1e8, the reference's bucket
+             above). Then the backfill at the JAX log's 25 iterations'
+             shapes (one 16-row and one 9-row chunk an agent, 128 launches):
+             total ms, K1 float64's and the eigvalsh's device ms, peak
+             memory; K1 float64 at the 16-row chunk's B=13,504 in turns with
+             its first layout and plain version.
 
-The last two lines are a JSON record of the kernels (each with its bound:
-the larger of its bytes over the card's memory rate and its operations over
-its FP32 rate) and ``{"ok": true, "device": {...}}``. The script imports
-nothing of JAX.
+The last two lines are a JSON record of the kernels (K1, K1_f64, K2,
+K2_f64, K3, K4 and the adjoint, each with its bound: the larger of its bytes
+over the card's memory rate and its operations over the rate of their type)
+and ``{"ok": true, "device": {...}}``. The script imports nothing of JAX.
 
     python3 chip_smoke.py --k1
 
@@ -191,6 +208,11 @@ lines): the quick check of K2 and K4.
 
 runs phases 1, 2 and 15a only (no result lines): the quick check of the
 adjoint kernel.
+
+    python3 chip_smoke.py --cond
+
+runs phases 1, 2 and 16 only (no result lines): config #7 with its
+condition numbers.
 """
 
 import functools
@@ -286,6 +308,17 @@ AUTODIFF_GRAD_TOL = 1e-3             # of the largest component: float32 feature
                                      # sides, whose last ulps the NLL solve amplifies
 VJP_TOL = 5e-5                       # float32 adjoint vs plain autograd, of max(1, max |g|)
 FIRST_LAYOUT_VJP = "circuit_vjp_first_layout.cu"  # the adjoint's first layout, timed in 15a
+F64_FIRST_LAYOUT = "circuit_f64_first_layout.cu"  # K1's and K2's float64 first layout, timed
+FIRST_LAYOUTS = (FIRST_LAYOUT_VJP, F64_FIRST_LAYOUT)  # in phases 9, 13 and 16
+# angles that phase 6 sets among the random float64 ones: large (the float64
+# sin_cos's Payne-Hanek reduction from 2^31 up) and next to multiples of pi/2
+F64_SPECIAL_ANGLES = (1e6, -1e6, 1e15, -1e15, 1e300, -1e300, 2.0 ** 31, np.pi / 2, np.pi,
+                      -3 * np.pi, float(np.nextafter(np.pi, 4.0)), 1e5 * np.pi)
+# phase 16: config #7 with the CLI's condition numbers (cond_mode "auto" = "host"
+# on the card), then the backfill at the shapes of the JAX log's 25 iterations
+# (one 16-row and one 9-row chunk an agent), held against the plain engine on
+# C7_COND_HELD agents
+C7_COND_ITERS, C7_COND_HELD = 25, 4
 VJP_PLAIN_ROWS = 2048                # the plain autograd's slice at config #7's shape: its
                                      # saved states (54,016 x 1024 complex64 a gate) do not fit
 # phase 15a's timed shapes: each autodiff step's adjoint launch (agents x Nmax rows)
@@ -352,14 +385,15 @@ def _alternate_ms(fns, reps: int):
     return [(a + b) / 2 for a, b in zip(first, second)]
 
 
-def _device_ms(fn, reps: int) -> float:
+def _device_ms(fn, reps: int, name: str = "") -> float:
     """Device time of one call of ``fn`` (ms), which launches one kernel:
     the kernel's own time as torch.profiler records it over ``reps`` calls,
     without the host's share of a call, which is most of a small launch's
     CUDA-event time. Averaged over the launches the profiler kept: on a
     loaded host it drops some, and a sum over ``reps`` would then read low.
-    Where it kept none in two tries, the CUDA-event time of a call stands in
-    (an upper bound)."""
+    With ``name``, only kernels whose name holds it count. Where it kept
+    none in two tries, the CUDA-event time of a call stands in (an upper
+    bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -370,7 +404,7 @@ def _device_ms(fn, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = [k for k in prof.key_averages() if k.device_time_total > 0]
+        kernels = [k for k in prof.key_averages() if k.device_time_total > 0 and name in k.key]
         kept = sum(k.count for k in kernels)
         if kept:
             return sum(k.device_time_total for k in kernels) / kept * 1e-3
@@ -392,7 +426,8 @@ def build_kernels(sources):
 
 
 # the warp kernels' entry functions, templated on the qubit count
-WARP_KERNELS = {"K1": "warp_pauli_features_kernel", "K2": "warp_states_kernel",
+WARP_KERNELS = {"K1": "warp_pauli_features_kernel", "K1_f64": "warp_pauli_features_f64_kernel",
+                "K2": "warp_states_kernel", "K2_f64": "warp_states_f64_kernel",
                 "K3": "warp_features_kernel", "K4": "warp_states_fused_kernel",
                 "vjp": "warp_vjp_kernel"}
 
@@ -468,13 +503,14 @@ def config7_problem(n_samples: int, n_agents: int):
     return X_tr, Y_tr, X_te, Y_te, splits
 
 
-def config7_train_config(iters: int, grad_method: str = "streamed", **kw):
+def config7_train_config(iters: int, grad_method: str = "streamed", compute_cond: bool = False,
+                         **kw):
     """The driver settings of config #7's run (examples/scale_out_training.py:
-    89,96 sets compute_cond=False)."""
+    89,96 sets compute_cond=False; the CLI's default is True, phase 16)."""
     from dqgp_tpu_torch.driver import TrainConfig
 
     return TrainConfig(max_iter=iters, seed=C7_SEED, grad_method=grad_method,
-                       cv_max_samples=C7_CV_MAX, compute_cond=False, **kw)
+                       cv_max_samples=C7_CV_MAX, compute_cond=compute_cond, **kw)
 
 
 def config7_test_nlpd_bar(ref) -> float:
@@ -928,8 +964,9 @@ def check_states(rand_angles) -> dict:
     """Phase 6: K2 (float32 and float64), K1's float64 instantiation and K4
     against their plain versions on the same CUDA tensors, for 8 families x
     every qubit count the kernels are built for x batch {1, 130, 22500},
-    plus config #5's own shapes. K4 is held to the plain fused engine and to
-    the plain unfused states. Returns the worst max abs diff of each."""
+    plus config #5's own shapes; the float64 angles hold F64_SPECIAL_ANGLES
+    in every third place. K4 is held to the plain fused engine and to the
+    plain unfused states. Returns the worst max abs diff of each."""
     import torch
 
     from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
@@ -952,9 +989,12 @@ def check_states(rand_angles) -> dict:
         check(np.isfinite(e) and e <= tol, f"{key} vs plain {what}: max abs diff {e} > {tol}")
         err[key] = max(err[key], e)
 
+    special = torch.tensor(F64_SPECIAL_ANGLES, dtype=torch.float64, device="cuda")
     for circuit, B in st_cases:
         what = f"{circuit.name} {circuit.num_qubits}q B={B}"
         a32, a64 = rand_angles(circuit, B), rand_angles(circuit, B, torch.float64)
+        flat = a64.view(-1)[::3]  # every third float64 angle a special one
+        flat.copy_(special.repeat(flat.numel() // len(special) + 1)[:flat.numel()])
         plain = K.states_reference(circuit, a32)
         hold("K2", K.states_from_angles(circuit, a32), plain, K2_TOL, what)
         fused = K.states_from_angles_fused(circuit, a32)
@@ -967,9 +1007,50 @@ def check_states(rand_angles) -> dict:
              K.pauli_features_reference(circuit, a64), F64_TOL, what)
     print(f"phase 6 states vs plain ({time.time() - t0:.2f} s): {len(st_cases)} cases; max "
           f"abs diff K2 f32 {err['K2']:.3e} (tol {K2_TOL}), K2 f64 {err['K2_f64']:.3e} (tol "
-          f"{F64_TOL}), K1 f64 {err['K1_f64']:.3e} (tol {F64_TOL}), K4 {err['K4']:.3e} vs "
-          f"plain fused / {err['K4_unfused']:.3e} vs plain unfused (tol {K4_TOL})", flush=True)
+          f"{F64_TOL}), K1 f64 {err['K1_f64']:.3e} (tol {F64_TOL}; the float64 angles hold "
+          f"{', '.join(f'{v:g}' for v in F64_SPECIAL_ANGLES)} in every third place), K4 "
+          f"{err['K4']:.3e} vs plain fused / {err['K4_unfused']:.3e} vs plain unfused (tol "
+          f"{K4_TOL})", flush=True)
     return err
+
+
+def time_f64(name: str, circuit, angles, reps: int) -> dict:
+    """K1's or K2's float64 kernel (``name``) at one shape: its first layout,
+    the register layout and the plain complex128 version in turns within one
+    call (CUDA events, a call each), then the two kernels alone (the
+    profiler), and the float64 bound. The first layout is held to the new
+    kernel at F64_TOL on the way."""
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    new, plain, first, bound = {
+        "K1_f64": (K.pauli_features_from_angles, K.pauli_features_reference,
+                   pauli_features_f64_first_layout, k1_bound),
+        "K2_f64": (K.states_from_angles, K.states_reference, states_f64_first_layout,
+                   k2_bound)}[name]
+    calls = [lambda: first(circuit, angles), lambda: new(circuit, angles),
+             lambda: plain(circuit, angles)]
+    e = float((calls[0]() - calls[1]()).abs().max())
+    check(e <= F64_TOL, f"{name}'s first layout and register layout differ by {e}")
+    first_ms, ms, plain_ms = _alternate_ms(calls, reps)
+    # each kernel by its own name: a stray record would halve the average
+    first_dev = _device_ms(calls[0], reps, {"K1_f64": "pauli_features_kernel_f64",
+                                            "K2_f64": "states_kernel_f64"}[name])
+    dev = _device_ms(calls[1], reps, WARP_KERNELS[name])
+    B = angles.shape[0]
+    b, by = bound(circuit, B, 8)
+    return {"name": name, "B": B, "qubits": circuit.num_qubits, "gates": circuit.num_gates,
+            "first_layout_ms": first_ms, "ms": ms, "plain_ms": plain_ms,
+            "first_layout_device_ms": first_dev, "device_ms": dev, "bound_ms": b,
+            "bound_by": by}
+
+
+def f64_text(t: dict) -> str:
+    return (f"{t['name']} n={t['qubits']} G={t['gates']} B={t['B']}: first layout "
+            f"{t['first_layout_ms']:.4f} ms (alone {t['first_layout_device_ms']:.4f}) -> "
+            f"{t['ms']:.4f} ms (alone {t['device_ms']:.4f}) vs plain {t['plain_ms']:.3f} ms, "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}): "
+            f"{t['bound_ms'] / t['device_ms']:.2%} of it alone (first layout "
+            f"{t['bound_ms'] / t['first_layout_device_ms']:.2%})")
 
 
 def time_states(rand_angles, smi: str) -> dict:
@@ -1013,21 +1094,21 @@ def time_states(rand_angles, smi: str) -> dict:
         crossover[n] = (t2, k2_bound(c, FID_STEP_ROWS)[0], t4, k4_bound(c, FID_STEP_ROWS)[0],
                         *(_device_ms(f, 20) for f in calls))
         del a
-    a64 = rand_angles(fid_circuit, FID_SAMPLES, torch.float64)
-    k2_64_ms, k2_64_plain_ms = _alternate_ms(
-        [lambda: K.states_from_angles(fid_circuit, a64),
-         lambda: K.states_reference(fid_circuit, a64)], 20)
-    # the float64 kernels at 10 qubits: [rows][K1, K1 plain, K2, K2 plain], bounds
+    # the float64 kernels: K2 at the dataset's 1000 rows (config #5), K1 and
+    # K2 at 10 qubits (kyriienko, 1 layer), each beside its first layout
+    k2_64 = time_f64("K2_f64", fid_circuit, rand_angles(fid_circuit, FID_SAMPLES, torch.float64),
+                     20)
     c64 = build_circuit("kyriienko", F64_TIMING_QUBITS, 1, FID_LAYERS)
-    f64 = {}
+    f64 = []
     for B in F64_TIMING_ROWS:
         a64 = rand_angles(c64, B, torch.float64)
-        times = _alternate_ms([lambda: K.pauli_features_from_angles(c64, a64),
-                               lambda: K.pauli_features_reference(c64, a64),
-                               lambda: K.states_from_angles(c64, a64),
-                               lambda: K.states_reference(c64, a64)], 3)
-        f64[B] = (*times, k1_bound(c64, B, 8), k2_bound(c64, B, 8))
+        f64 += [time_f64(name, c64, a64, 3 if B > FID_SAMPLES else 10)
+                for name in ("K1_f64", "K2_f64")]
         del a64
+    for t in f64[-2:]:  # at the step's row count the redesign must win outright
+        check(t["ms"] < min(t["plain_ms"], t["first_layout_ms"]),
+              f"{t['name']} at B={t['B']} is not faster than its plain version and its first "
+              f"layout: {f64_text(t)}")
     k2_b, k2_by = k2_bound(fid_circuit, FID_STEP_ROWS)
     k4_b, k4_by = k4_bound(fid_circuit, FID_STEP_ROWS)
     print(f"phase 9 states times ({time.time() - t0:.2f} s) [{smi}]: at B={FID_STEP_ROWS} "
@@ -1044,22 +1125,15 @@ def time_states(rand_angles, smi: str) -> dict:
                       f"({b4 / t4:.1%} of {b4:.5f}), K4/K2 {t4 / t2:.2f}, device {d2:.4f} / "
                       f"{d4:.4f} / K3 {d3:.4f} ms"
                       for n, (t2, b2, t4, b4, d2, d4, d3) in crossover.items())
-          + f"; K2 f64 {k2_64_ms:.4f} ms vs plain c128 {k2_64_plain_ms:.4f} ms at "
-          f"B={FID_SAMPLES}; the float64 kernels at {F64_TIMING_QUBITS} qubits (kyriienko 1 "
-          f"layer, G={c64.num_gates}; bounds against {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s FP64): "
-          + "; ".join(f"B={B}: K1 f64 {t1:.3f} ms vs plain {p1:.3f} ms, bound {b1[0]:.5f} ms "
-                      f"({b1[1]}), {b1[0] / t1:.2%} of it; K2 f64 {t2:.3f} ms vs plain {p2:.3f} "
-                      f"ms, bound {b2[0]:.5f} ms ({b2[1]}), {b2[0] / t2:.2%} of it"
-                      for B, (t1, p1, t2, p2, b1, b2) in f64.items()), flush=True)
+          + f"; the float64 kernels, first layout -> register layout vs plain complex128 "
+          f"(bounds against {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s FP64): "
+          + "; ".join(f64_text(t) for t in [k2_64] + f64), flush=True)
     cross = {str(n): dict(zip(("k2_ms", "k2_bound_ms", "k4_ms", "k4_bound_ms",
                                "k2_device_ms", "k4_device_ms", "k3_device_ms"), t))
              for n, t in crossover.items()}
-    f64_rec = {str(B): {"k1_ms": t1, "k1_plain_ms": p1, "k1_bound_ms": b1[0],
-                        "k2_ms": t2, "k2_plain_ms": p2, "k2_bound_ms": b2[0]}
-               for B, (t1, p1, t2, p2, b1, b2) in f64.items()}
     return {"K2": {"ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_b, "bound_by": k2_by,
-                   "device_ms": k2_dev_ms, "ms_f64": k2_64_ms, "plain_ms_f64": k2_64_plain_ms,
-                   "k2_vs_k4_by_qubits": cross, "f64_at_10_qubits_by_rows": f64_rec},
+                   "device_ms": k2_dev_ms, "k2_vs_k4_by_qubits": cross},
+            "K2_f64": {**k2_64, "at_10_qubits": f64},
             "K4": {"ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_b, "bound_by": k4_by,
                    "device_ms": k4_dev_ms}}
 
@@ -1269,8 +1343,161 @@ def config7_phases(dev, smi: str, rand_angles):
           f"({len(X_tr) ** 2 / (mv_ms * 1e-3):.3e} entries/s), {C7_TEST_ROWS} {mv512_ms:.2f} ms",
           flush=True)
     ad = config7_autodiff_phase(dev, smi, (X_tr, Y_tr, splits), step_ms)
+    cond = config7_cond_phase(dev, smi, (X_tr, Y_tr, splits), rand_angles)
     return ({"launches": counts["K3"], "max_abs_err": worst, **k3, "library_ms": None,
-             "max_abs_err_vs_unfused": worst_unfused, "step_ms": step_ms}, ad)
+             "max_abs_err_vs_unfused": worst_unfused, "step_ms": step_ms}, ad, cond)
+
+
+def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
+    """Phase 16: config #7 as phases 11b-12 run it (``full``: 11b's 49,999
+    rows over 64 agents), with the CLI's defaults for the condition numbers:
+    compute_cond=True and cond_mode "auto" (dqgp_tpu/cli.py:115, :396), which
+    is "host" on the card. Its backfill after training makes one K1 float64
+    launch an agent and 16-row chunk (64 for its 2 iterations) and no other
+    launch; it is held on C7_COND_HELD agents against the same backfill
+    through the plain complex128 engine. Then the backfill at the shapes of
+    the JAX log's 25 iterations (results_round5/cli_config7_50k.log): the
+    run's 2 z rows and 23 torus points from a seeded generator, one 16-row
+    and one 9-row chunk an agent (128 launches), timed by CUDA events, with
+    its peak allocated memory; on the same chunks again, K1 float64's
+    device time (the profiler) and the float64 eigvalsh's (CUDA events);
+    the same backfill with K1 float64's first layout in the kernel's place;
+    and K1 float64 at the 16-row chunk's shape beside its first layout and
+    its plain version. Returns K1_f64's numbers for the kernels record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.driver import host_condition_numbers, resolve_cond_mode, train
+    from dqgp_tpu_torch.models.kernels import quantum_kernel as QK
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import features_from_angles, grams_at_rows
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.ops.statevector import angle_matrix
+
+    X_tr, Y_tr, splits = full
+    spec = config7_spec()
+    P, n_max = spec.num_parameters, max(len(x) for x, _ in splits)
+    cfg = config7_train_config(C7_ITERS, compute_cond=True, cond_mode="auto", verbose=False)
+    check(resolve_cond_mode(cfg, dev) == "host", "cond_mode auto does not resolve to host")
+    t0 = time.time()
+    K.reset_launch_counts()
+    res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    train_s = time.time() - t0
+    rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
+    want_k3 = C7_ITERS * (1 + P) + C7_ITERS + rescores
+    want_f64 = backfill_launches(C7_ITERS, C7_AGENTS)
+    check(counts["K1_f64"] == want_f64 and counts["K3"] == want_k3
+          and sum(counts.values()) == want_f64 + want_k3,
+          f"config #7 with cond launches {counts}: want K3 = {want_k3} in training and "
+          f"K1_f64 = {want_f64} in the backfill, no other kernel")
+    host = np.array([h["condition_numbers"] for h in res.nll_history])
+    check(host.shape == (C7_ITERS, C7_AGENTS) and not bool(np.isnan(host).any()),
+          f"the backfill left a condition number out: {host.shape}")
+    nll_rel = abs(res.nll_history[0]["total_nll"] - C7_NLL_ITER1) / C7_NLL_ITER1
+    check(nll_rel <= 1e-3, f"iteration 1 nll_sum deviates {nll_rel} from the JAX log's")
+    rows = np.array([h["consensus_params"] for h in res.cv_history])
+    # the same backfill through the plain engine on the first agents
+    saved = QK.pauli_features_from_angles
+    QK.pauli_features_from_angles = K.pauli_features_reference
+    try:
+        plain = host_condition_numbers(spec, splits[:C7_COND_HELD], rows, device=dev)
+    finally:
+        QK.pauli_features_from_angles = saved
+    check(K.launch_counts() == counts, "the plain backfill launched a kernel")
+    rel = hold_host_cond(host[:, :C7_COND_HELD], plain,
+                         f"config #7's backfill vs the plain engine on {C7_COND_HELD} agents")
+    print(f"phase 16 config #7 with condition numbers ({time.time() - t0:.2f} s) [{smi}]: "
+          f"{len(X_tr)} train rows over {C7_AGENTS} agents, {C7_ITERS} streamed iterations with "
+          f"compute_cond=True, cond_mode auto = host, in {train_s:.2f} s; launches {counts} "
+          f"(K3 = {want_k3}, K1_f64 = {want_f64}: one an agent and 16-row chunk); iteration 1 "
+          f"nll_sum rel dev {nll_rel:.2e} from the JAX log's; condition numbers of the first "
+          f"{C7_COND_HELD} agents vs the plain complex128 engine's: worst rel dev below 1e12 "
+          f"{rel:.2e} (bar {COND_RTOL} below {COND_EXACT_BELOW:.0e}, buckets above); "
+          f"iteration 1: " + ", ".join(f"{v:.4e}" for v in host[0, :8]) + ", ...; the plain "
+          f"engine's: " + ", ".join(f"{v:.4e}" for v in plain[0]), flush=True)
+
+    # the backfill at the shapes of 25 iterations
+    gen = torch.Generator().manual_seed(C7_SEED)
+    Z = np.concatenate([rows, (torch.rand((C7_COND_ITERS - len(rows), P), generator=gen,
+                                          dtype=torch.float64) * np.pi).numpy()])
+    t0 = time.time()
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    cond25 = host_condition_numbers(spec, splits, Z, device=dev)
+    ev[1].record()
+    torch.cuda.synchronize()
+    total_ms = ev[0].elapsed_time(ev[1])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    counts25 = K.launch_counts()
+    want25 = backfill_launches(C7_COND_ITERS, C7_AGENTS)
+    check(counts25 == {**dict.fromkeys(counts25, 0), "K1_f64": want25},
+          f"the 25-row backfill launched {counts25}: want K1_f64 = {want25} and nothing else")
+    check(not bool(np.isnan(cond25).any()), "the 25-row backfill left a value out")
+    # where its time goes, on the same chunks and agents again: the float64
+    # features alone under the profiler (K1 f64's device time), then each
+    # Gram stack's eigvalsh alone by CUDA events (it waits for the host, and
+    # its hundreds of kernels a Gram would swamp the profiler)
+    Zw = M.wrap(torch.as_tensor(Z, device=dev))
+    Xs = [torch.as_tensor(X_i, device=dev) for X_i, _ in splits]
+    chunks = [Zw[s0:s0 + 16] for s0 in range(0, len(Z), 16)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for rows_c in chunks:
+            for X_i in Xs:
+                a = angle_matrix(spec.circuit, X_i[None], rows_c, torch.float64)
+                features_from_angles(spec, a.reshape(-1, a.shape[-1]))
+        torch.cuda.synchronize()
+    k1_dev = sum(e.self_device_time_total for e in prof.key_averages()
+                 if WARP_KERNELS["K1_f64"] in e.key) / 1e3
+    eigh_ms, eigh_n = 0.0, 0
+    for rows_c in chunks:
+        for X_i in Xs:
+            gram = grams_at_rows(spec, X_i, rows_c)
+            ev[0].record()
+            torch.linalg.eigvalsh(gram)
+            ev[1].record()
+            torch.cuda.synchronize()
+            eigh_ms += ev[0].elapsed_time(ev[1])
+            eigh_n += gram.shape[0]
+            del gram
+    # the same backfill with K1 f64's first layout in the kernel's place, as
+    # the package ran it before the register layout
+    QK.pauli_features_from_angles = pauli_features_f64_first_layout
+    try:
+        ev[0].record()
+        cond_first = host_condition_numbers(spec, splits, Z, device=dev)
+        ev[1].record()
+        torch.cuda.synchronize()
+    finally:
+        QK.pauli_features_from_angles = saved
+    first_ms = ev[0].elapsed_time(ev[1])
+    # timed, not held: where a Gram is singular to float64 its smallest
+    # |eigenvalue| is rounding noise, which two float64 feature engines move
+    # by orders of magnitude, across the 1e15 bucket edge too; what is held
+    # to the plain engine is the C7_COND_HELD agents above, at the run's z
+    check(not bool(np.isnan(cond_first).any()), "the first layout's backfill left a value out")
+    t16 = time_f64("K1_f64", spec.circuit, rand_angles(spec.circuit, 16 * n_max, torch.float64),
+                   3)
+    print(f"phase 16 backfill at 25 iterations' shapes ({time.time() - t0:.2f} s) [{smi}]: "
+          f"{C7_COND_ITERS} z rows (the run's {len(rows)} + {C7_COND_ITERS - len(rows)} seeded "
+          f"torus points), {C7_AGENTS} agents of {min(len(x) for x, _ in splits)}-{n_max} rows, "
+          f"one 16-row and one 9-row chunk an agent: {counts25['K1_f64']} K1_f64 launches, "
+          f"{total_ms:.1f} ms (CUDA events); on the same chunks again, K1 f64 alone {k1_dev:.1f} "
+          f"ms on the device ({k1_dev / total_ms:.1%} of the backfill) and the float64 eigvalsh "
+          f"of the {eigh_n} Grams (stacks of 16 or 9, n_i x n_i) {eigh_ms:.1f} ms "
+          f"({eigh_ms / eigh_n:.2f} ms a Gram, {eigh_ms / total_ms:.1%}); peak allocated "
+          f"{peak:.2f} GiB; the same backfill through K1 f64's first layout {first_ms:.1f} ms; "
+          + f64_text(t16), flush=True)
+    return {"launches": counts["K1_f64"], "train_s": train_s, "backfill_25_ms": total_ms,
+            "backfill_25_launches": counts25["K1_f64"], "backfill_25_k1_f64_device_ms": k1_dev,
+            "backfill_25_eigvalsh_ms": eigh_ms, "backfill_25_peak_gib": peak,
+            "backfill_25_first_layout_ms": first_ms,
+            "cond_rel_dev_vs_plain": rel, **t16}
 
 
 def runs_identical(a, b, what: str):
@@ -1309,7 +1536,8 @@ def hold_host_cond(got, want, what: str) -> float:
     # eigenvalues of 225) may read inf, as max|w| / tiny overflows: "Poor"
     check(got.shape == want.shape and not bool(np.isnan(got).any()),
           f"{what}: host condition numbers {got.shape}, NaN or misshapen")
-    rel = np.abs(got - want) / want
+    with np.errstate(invalid="ignore"):  # inf - inf where both read inf
+        rel = np.abs(got - want) / want
     exact = np.where(want < COND_EXACT_BELOW, rel, 0.0)
     check(bool(np.all(exact <= COND_RTOL)),
           f"{what}: host condition numbers deviate {exact.max():.2e} > {COND_RTOL}")
@@ -1394,23 +1622,15 @@ def cond_phase(dev, smi: str, rand_angles, fid) -> dict:
     ns_circuit = northstar_spec().circuit
     n_max = max(len(x) for x, _ in splits)
     times = {}
-    for name, circuit, B, fn, plain, bound in (
-            ("K1_f64", ns_circuit, 16 * n_max, K.pauli_features_from_angles,
-             K.pauli_features_reference, k1_bound),
-            ("K1_f64", ns_circuit, GATE_ITERS * n_max, K.pauli_features_from_angles,
-             K.pauli_features_reference, k1_bound),
-            ("K2_f64", fspec.circuit, FID_ITERS * max(len(x) for x, _ in fsplits),
-             K.states_from_angles, K.states_reference, k2_bound)):
-        a = rand_angles(circuit, B, torch.float64)
-        ms, plain_ms = _alternate_ms([lambda: fn(circuit, a), lambda: plain(circuit, a)], 10)
-        times.setdefault(name, []).append({"B": B, "qubits": circuit.num_qubits, "ms": ms,
-                                           "plain_ms": plain_ms,
-                                           "bound_ms": bound(circuit, B, 8)[0]})
+    for name, circuit, B in (("K1_f64", ns_circuit, 16 * n_max),
+                             ("K1_f64", ns_circuit, GATE_ITERS * n_max),
+                             ("K2_f64", fspec.circuit,
+                              FID_ITERS * max(len(x) for x, _ in fsplits))):
+        times.setdefault(name, []).append(
+            time_f64(name, circuit, rand_angles(circuit, B, torch.float64), 10))
     print(f"phase 13 float64 kernels at the backfill's shapes ({time.time() - t0:.2f} s) "
-          f"[{smi}]: " + "; ".join(
-              f"{name} B={t['B']} n={t['qubits']}: {t['ms']:.4f} ms vs plain "
-              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms"
-              for name, ts in times.items() for t in ts), flush=True)
+          f"[{smi}]: " + "; ".join(f64_text(t) for ts in times.values() for t in ts),
+          flush=True)
     return times
 
 
@@ -1610,16 +1830,60 @@ def vjp_first_layout_config(num_qubits: int, num_gates: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _first_layout_library():
+def _first_layout_library(source: str = FIRST_LAYOUT_VJP):
     import ctypes
 
     from dqgp_tpu_torch.ops import _build
 
-    lib = _build.load(FIRST_LAYOUT_VJP)
-    lib.dqgp_circuit_vjp_first_layout.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p])
-    lib.dqgp_circuit_vjp_first_layout.restype = ctypes.c_int
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = _build.load(source)
+    signatures = {
+        FIRST_LAYOUT_VJP: {"dqgp_circuit_vjp_first_layout": [vp] * 4 + [i32] * 6 + [i64, vp]},
+        F64_FIRST_LAYOUT: {
+            "dqgp_pauli_features_f64_first_layout": [vp] * 3 + [i32] * 5 + [i64, vp],
+            "dqgp_states_f64_first_layout": [vp] * 3 + [i32] * 6 + [i64, vp]},
+    }[source]
+    for name, argtypes in signatures.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = i32
     return lib
+
+
+def pauli_features_f64_first_layout(circuit, angles):
+    """K1's float64 kernel in the first layout (csrc/circuit_f64_first_layout.cu:
+    one thread a sample, the state in shared memory), launched as its
+    wrapper did before the register layout, for the times of phases 9, 13
+    and 16. It counts no launch: the package does not run it."""
+    import torch
+
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    B, G = angles.shape
+    out = torch.empty((B, 3 * circuit.num_qubits), dtype=torch.float64, device=angles.device)
+    tpb, gstride, smem = K.launch_config(circuit.num_qubits, G, 8)
+    err = _first_layout_library(F64_FIRST_LAYOUT).dqgp_pauli_features_f64_first_layout(
+        angles.data_ptr(), K._gate_table(circuit, angles.device).data_ptr(), out.data_ptr(),
+        B, G, circuit.num_qubits, tpb, gstride, smem, torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the first-layout K1 float64 launch failed: error {err}")
+    return out
+
+
+def states_f64_first_layout(circuit, angles):
+    """K2's float64 kernel in the first layout (qubit q on bit q), as
+    ``pauli_features_f64_first_layout``."""
+    import torch
+
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    B, G = angles.shape
+    out = torch.empty((B, circuit.dim), dtype=torch.complex128, device=angles.device)
+    tpb, gstride, sstride, smem = K.states_launch_config(circuit.num_qubits, G, 8)
+    err = _first_layout_library(F64_FIRST_LAYOUT).dqgp_states_f64_first_layout(
+        angles.data_ptr(), K._gate_table(circuit, angles.device).data_ptr(), out.data_ptr(),
+        B, G, circuit.num_qubits, tpb, gstride, sstride, smem,
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"the first-layout K2 float64 launch failed: error {err}")
+    return out
 
 
 def vjp_first_layout(circuit, angles, cotangent, output: str):
@@ -1979,6 +2243,9 @@ def main(argv=None) -> int:
     ap.add_argument("--vjp", action="store_true",
                     help="phases 1, 2 and 15a (the adjoint kernel against its plain version "
                          "and its first layout, and their times) only, without the result lines")
+    ap.add_argument("--cond", action="store_true",
+                    help="phases 1, 2 and 16 (config #7 with its condition numbers) only, "
+                         "without the result lines")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2010,11 +2277,13 @@ def main(argv=None) -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.time()
-    builds = build_kernels(K.SOURCES + (FIRST_LAYOUT_VJP,))
+    builds = build_kernels(K.SOURCES + FIRST_LAYOUTS)
     for src in K.SOURCES:
         K._library(src)
-    _first_layout_library()
-    warp_sources = {"K1": K.SOURCE, "K2": K.STATES_SOURCE, "K3": K.FEATURES_FUSED_SOURCE,
+    for src in FIRST_LAYOUTS:
+        _first_layout_library(src)
+    warp_sources = {"K1": K.SOURCE, "K1_f64": K.SOURCE, "K2": K.STATES_SOURCE,
+                    "K2_f64": K.STATES_SOURCE, "K3": K.FEATURES_FUSED_SOURCE,
                     "K4": K.FUSED_SOURCE, "vjp": K.VJP_SOURCE}
     regs = {}
     for name, src in warp_sources.items():
@@ -2025,7 +2294,12 @@ def main(argv=None) -> int:
     # each warp kernel's geometry at its paths' circuits: (kernel, geometry, qubits, path)
     c7_circuit = config7_spec().circuit
     geos = [("K1", K.features_geometry(main_circuit), NUM_QUBITS, "the north star"),
+            ("K1_f64", K.features_geometry(main_circuit, 8), NUM_QUBITS,
+             "the north star's backfill"),
+            ("K1_f64", K.features_geometry(c7_circuit, 8), C7_QUBITS, "config #7's backfill"),
             ("K2", K.states_geometry(fid_circuit), FID_QUBITS, "config #5"),
+            ("K2_f64", K.states_geometry(fid_circuit, 8), FID_QUBITS,
+             "config #5's dataset and backfill"),
             ("K3", K.fused_geometry(c7_circuit), C7_QUBITS, "config #7"),
             ("K4", K.fused_geometry(fid_circuit), FID_QUBITS, "config #5"),
             ("vjp", K.vjp_geometry(main_circuit), NUM_QUBITS, "the north star"),
@@ -2033,7 +2307,7 @@ def main(argv=None) -> int:
             ("vjp", K.vjp_geometry(c7_circuit), C7_QUBITS, "config #7")]
     per_sm = [K.blocks_per_sm(name, geo, n) for name, geo, n, _ in geos]
     print(f"phase 2 build ({time.time() - t0:.2f} s): "
-          + " | ".join(builds[src][0] for src in K.SOURCES + (FIRST_LAYOUT_VJP,))
+          + " | ".join(builds[src][0] for src in K.SOURCES + FIRST_LAYOUTS)
           + " | ptxas by qubit count (registers, stack B, spill stores B, spill loads B): "
           + "; ".join(f"{name}: " + (", ".join(f"{n}: {info}" for n, info in r.items())
                                      or "reused") for name, r in regs.items())
@@ -2069,7 +2343,10 @@ def main(argv=None) -> int:
         time_states(rand_angles, smi)
     if args.vjp:
         check_vjp(rand_angles)
-    if args.k1 or args.k3 or args.states or args.vjp:
+    if args.cond:
+        X_tr, Y_tr, _, _, c7_splits = config7_problem(C7_SAMPLES, C7_AGENTS)
+        config7_cond_phase(dev, smi, (X_tr, Y_tr, c7_splits), rand_angles)
+    if args.k1 or args.k3 or args.states or args.vjp or args.cond:
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
@@ -2289,23 +2566,39 @@ def main(argv=None) -> int:
     chained = chained_phase(dev, smi, fid)
     adjoint = autodiff_phase(dev, smi, rand_angles)
 
-    k3, adjoint7 = config7_phases(dev, smi, rand_angles)
+    k3, adjoint7, cond7 = config7_phases(dev, smi, rand_angles)
 
     print(json.dumps({"kernels": [
         {"name": "pauli_features (K1)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:392",
          "launches": launches, "max_abs_err": worst, **k1,
-         "library_ms": None, "max_abs_err_f64": err["K1_f64"], "gate_25_iterations": gate,
-         "launches_f64": launches_f64, "f64_backfill": backfill["K1_f64"],
-         "chained": chained["K1"]},
+         "library_ms": None, "gate_25_iterations": gate, "chained": chained["K1"]},
+        {"name": "pauli_features float64 (K1_f64)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/pauli_features.cu",
+         "replaces": "dqgp_tpu/ops/statevector.py:148",
+         "replaces_note": "no Pallas kernel: the JAX package runs float64 features on its "
+                          "complex128 XLA engine (state_from_angles :148, pauli_features :172)",
+         "launches": cond7["launches"], "max_abs_err": err["K1_f64"],
+         **{k: cond7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                  "first_layout_ms", "first_layout_device_ms", "B")},
+         "library_ms": None, "config7_cond": cond7,
+         "launches_northstar_backfill": launches_f64, "backfill_shapes": backfill["K1_f64"]},
         {"name": "states (K2)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:238",
          "launches": fcounts["K2"], "max_abs_err": err["K2"], **st["K2"],
-         "library_ms": None, "launches_f64": fcounts["K2_f64"],
-         "max_abs_err_f64": err["K2_f64"], "f64_backfill": backfill["K2_f64"],
-         "chained": chained["K2"]},
+         "library_ms": None, "chained": chained["K2"]},
+        {"name": "states float64 (K2_f64)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/states.cu",
+         "replaces": "dqgp_tpu/ops/statevector.py:148",
+         "replaces_note": "no Pallas kernel: the JAX package runs float64 states on its "
+                          "complex128 XLA engine (state_from_angles :148)",
+         "launches": fcounts["K2_f64"], "max_abs_err": err["K2_f64"],
+         **{k: st["K2_f64"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                         "first_layout_ms", "first_layout_device_ms", "B",
+                                         "at_10_qubits")},
+         "library_ms": None, "backfill_shapes": backfill["K2_f64"]},
         {"name": "pauli_features_fused (K3)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features_fused.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:330", **k3},

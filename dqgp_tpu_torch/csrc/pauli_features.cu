@@ -39,14 +39,21 @@
 // sin_cos (sincosf's algorithm, no fast-math intrinsics): features are held
 // to the plain PyTorch engine at 5e-6.
 //
-// Design, float64 (pauli_features_kernel_f64): 2^n complex128 amplitudes
-// over the same lanes would be 128 registers of state a lane at n >= 5,
-// which does not fit, so the float64 kernel keeps the shared-memory layout
-// of statevector.cuh's gate loop: one thread per sample, the state resident
-// in shared memory as [amplitude][thread] planes, the block's angle rows
-// staged with coalesced loads at an odd stride, no barrier inside the gate
-// loop. Trig is sincos; features are held to the plain engine at 1e-12. It
-// runs for float64 features only (reference-grade checks).
+// Design, float64 (warp_pauli_features_f64_kernel): the float32 design in
+// complex128, through the same batch loop, gate bodies and reduction
+// (warp_state.cuh, templated on the real type) and the same geometry and
+// bit map: A = min(2^n, 32) amplitudes a lane, a lane a sample up to 5
+// qubits, a warp a sample at 10. A lane's state is 4 x 2^n registers: up
+// to 4 qubits two blocks an SM (F64MinBlocks, 128 registers a thread), from
+// 5 qubits up 128 registers of state and one block an SM (up to 255
+// registers a thread, as the adjoint kernel's two float32 states). Shuffles
+// of a double are two 32-bit shuffles. Trig is warp_state.cuh's float64
+// sin_cos (CUDA's sincos, without its local array): features are held to
+// the plain engine at 1e-12. It runs for float64 features: the condition-
+// number backfill (driver.host_condition_numbers), 16 z rows of an agent a
+// launch. Its first layout (one thread a sample, the state in shared
+// memory) stays in circuit_f64_first_layout.cu for chip_smoke.py's timing
+// only.
 //
 // Interface: plain C, loaded with ctypes. The launches return
 // cudaGetLastError(), which the Python wrapper checks.
@@ -54,7 +61,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "statevector.cuh"
 #include "warp_state.cuh"
 
 namespace {
@@ -78,49 +84,18 @@ warp_pauli_features_kernel(const float* __restrict__ angles,
   });
 }
 
-// float64: one thread per sample, the state in shared memory.
-__global__ void pauli_features_kernel_f64(const double* __restrict__ angles,
-                                          const int* __restrict__ gates,
-                                          double* __restrict__ out,
-                                          int B, int G, int n, int gstride) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tpb = blockDim.x;
-  const int tid = threadIdx.x;
-  const int dim = 1 << n;
-  double* re = reinterpret_cast<double*>(smem_raw);  // [dim][tpb]
-  double* im = re + (size_t)dim * tpb;                // [dim][tpb]
-  double* ang = im + (size_t)dim * tpb;               // [tpb][gstride]
-
-  const long long b0 = (long long)blockIdx.x * tpb;
-  const int rows = (int)min((long long)tpb, (long long)B - b0);
-
-  dqgp::stage_rows(ang, angles + b0 * G, rows, G, gstride);
-  dqgp::init_zero_state(re + tid, im + tid, tpb, dim);
-  __syncthreads();
-  if (tid >= rows) return;
-
-  dqgp::apply_gates(re + tid, im + tid, tpb, ang + tid * gstride, gates, G, n);
-
-  // <X_q> = 2 sum_{bit q = 0} Re(conj(s0) s1), <Y_q> = 2 sum Im(conj(s0) s1),
-  // <Z_q> = sum (1 - 2 bit_q) |s|^2.
-  const int half_dim = dim >> 1;
-  double* o = out + (b0 + tid) * 3 * n;
-  for (int q = 0; q < n; ++q) {
-    const int lo = (1 << q) - 1;
-    double x = 0.0, y = 0.0, z = 0.0;
-    for (int p = 0; p < half_dim; ++p) {
-      const int k0 = ((p >> q) << (q + 1)) | (p & lo);
-      const int k1 = k0 | (1 << q);
-      const double r0 = re[k0 * tpb + tid], i0 = im[k0 * tpb + tid];
-      const double r1 = re[k1 * tpb + tid], i1 = im[k1 * tpb + tid];
-      x += r0 * r1 + i0 * i1;
-      y += r0 * i1 - i0 * r1;
-      z += (r0 * r0 + i0 * i0) - (r1 * r1 + i1 * i1);
-    }
-    o[q] = 2.0 * x;
-    o[n + q] = 2.0 * y;
-    o[2 * n + q] = z;
-  }
+// float64: the same, in complex128; out at (B, 3N) float64.
+template <int N>
+__global__ void __launch_bounds__(kMaxThreads, F64MinBlocks<N>::value)
+warp_pauli_features_f64_kernel(const double* __restrict__ angles,
+                               const int* __restrict__ gates,
+                               double* __restrict__ out, int B, int G) {
+  using Geo = Geometry<N, double>;
+  run_gate_batch<N>(angles, gates, B, G,
+                    [out, B](const double (&re)[Geo::kA], const double (&im)[Geo::kA],
+                             int lig, int b, const StagedT<double>&) {
+    reduce_features<N>(re, im, lig, out + (long long)b * (3 * N), b < B);
+  });
 }
 
 }  // namespace
@@ -162,21 +137,33 @@ int dqgp_pauli_features_blocks_per_sm(int n, int tpb, long long smem_bytes) {
   return -1;
 }
 
-// out points at a (B, 3n) float64 tensor. Returns cudaGetLastError().
-int dqgp_pauli_features_f64(const double* angles, const int* gates,
-                            double* out, int B, int G, int n, int tpb,
-                            int gstride, long long smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pauli_features_kernel_f64, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes);
-    if (e != cudaSuccess) return (int)e;
+// The float64 instantiations: angles (B, G) float64, the same gate table,
+// out (B, 3n) float64. Returns cudaGetLastError().
+int dqgp_pauli_features_f64(const double* angles, const int* gates, double* out,
+                            int B, int G, int n, int tpb, long long smem_bytes,
+                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n) {
+#define DQGP_CASE(N)                                                                   \
+  case N:                                                                              \
+    return launch_persistent(warp_pauli_features_f64_kernel<N>,                        \
+                             Geometry<N, double>::kSamples, B, tpb, smem_bytes, s,     \
+                             angles, gates, out, B, G);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
   }
-  const int blocks = (B + tpb - 1) / tpb;
-  pauli_features_kernel_f64<<<blocks, tpb, (size_t)smem_bytes,
-                              (cudaStream_t)stream>>>(angles, gates, out, B, G,
-                                                      n, gstride);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+int dqgp_pauli_features_f64_blocks_per_sm(int n, int tpb, long long smem_bytes) {
+  switch (n) {
+#define DQGP_CASE(N) \
+  case N:            \
+    return blocks_per_sm(warp_pauli_features_f64_kernel<N>, tpb, smem_bytes);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
+  }
+  return -1;
 }
 
 const char* dqgp_cuda_error_string(int code) {

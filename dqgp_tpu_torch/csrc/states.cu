@@ -30,14 +30,19 @@
 // reports no stack frame and no spills for any of the ten (chip_smoke.py's
 // phase 2 fails otherwise). Trig is warp_state.cuh's sin_cos.
 //
-// Design, float64 (states_kernel_f64): 2^n complex128 amplitudes over
-// the same lanes would be 128 registers of state a lane at n >= 5, which
-// does not fit, so the float64 kernel keeps the shared-memory layout
-// of statevector.cuh's gate loop: one thread per sample, the state
-// resident in shared memory as [amplitude][thread] planes at an odd stride,
-// and after a barrier a cooperative store, consecutive threads taking
-// consecutive amplitudes of one row. It runs once a dataset (B = 1000) and
-// for float64 features.
+// Design, float64 (warp_states_f64_kernel): the float32 design in
+// complex128, through the same batch loop and gate bodies (warp_state.cuh,
+// templated on the real type), geometry and bit map; a lane's state is 4 x
+// 2^n registers, so two blocks an SM up to 4 qubits and one (up to 255
+// registers a thread) from 5 up (F64MinBlocks). The write-out keeps the
+// stores coalesced (store_state_f64): at 10 qubits a warp's sample writes
+// 512 B a store from its registers; below, the warp's samples' rows are one
+// run of the output, which goes through the warp's buffer in shared memory
+// and out 512 B a store. Trig is warp_state.cuh's float64 sin_cos. It runs
+// once a dataset (B = 1000), for float64 features and in the condition-
+// number backfill of the fidelity kernel. Its first layout (one thread a
+// sample, the state in shared memory) stays in circuit_f64_first_layout.cu
+// for chip_smoke.py's timing only.
 //
 // Interface: plain C, loaded with ctypes. The launches return
 // cudaGetLastError(), which the Python wrapper checks.
@@ -45,7 +50,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "statevector.cuh"
 #include "warp_state.cuh"
 
 namespace {
@@ -68,32 +72,23 @@ warp_states_kernel(const float* __restrict__ angles,
   });
 }
 
-// float64: one thread per sample, the state in shared memory.
-__global__ void states_kernel_f64(const double* __restrict__ angles,
-                                  const int* __restrict__ gates,
-                                  double* __restrict__ out,
-                                  int B, int G, int n, int gstride, int sstride) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tpb = blockDim.x;
-  const int tid = threadIdx.x;
-  const int dim = 1 << n;
-  double* re = reinterpret_cast<double*>(smem_raw);  // [dim][sstride]
-  double* im = re + (size_t)dim * sstride;            // [dim][sstride]
-  double* ang = im + (size_t)dim * sstride;           // [tpb][gstride]
-
-  const long long b0 = (long long)blockIdx.x * tpb;
-  const int rows = (int)min((long long)tpb, (long long)B - b0);
-
-  dqgp::stage_rows(ang, angles + b0 * G, rows, G, gstride);
-  __syncthreads();
-  if (tid < rows) {
-    dqgp::init_zero_state(re + tid, im + tid, sstride, dim);
-    dqgp::apply_gates(re + tid, im + tid, sstride, ang + tid * gstride, gates,
-                      G, n);
-  }
-  __syncthreads();
-  dqgp::store_states(reinterpret_cast<double2*>(out) + b0 * dim, re, im,
-                     sstride, rows, n);
+// float64: the same in complex128, out at (B, 2^N) complex128. The launch
+// adds each warp's staging buffer for the write-out (kSamples rows of
+// kStateStageStride<N> complex128) after every warp's rows, below 10 qubits.
+template <int N>
+__global__ void __launch_bounds__(kMaxThreads, F64MinBlocks<N>::value)
+warp_states_f64_kernel(const double* __restrict__ angles,
+                       const int* __restrict__ gates, double* __restrict__ out,
+                       int B, int G) {
+  using Geo = Geometry<N, double>;
+  run_gate_batch<N>(angles, gates, B, G,
+                    [out, B](const double (&re)[Geo::kA], const double (&im)[Geo::kA],
+                             int lig, int b, const StagedT<double>& st) {
+    const int sw = (threadIdx.x & 31) / Geo::kL;
+    double2* buf = reinterpret_cast<double2*>(st.scratch) +
+                   (threadIdx.x >> 5) * Geo::kSamples * kStateStageStride<N>;
+    store_state_f64<N>(re, im, lig, sw, reinterpret_cast<double2*>(out), b - sw, B, buf);
+  });
 }
 
 }  // namespace
@@ -133,21 +128,32 @@ int dqgp_states_blocks_per_sm(int n, int tpb, long long smem_bytes) {
   return -1;
 }
 
-// gates is the (G, 3) int32 table [kind, qubit, control], out points at a
-// (B, 2^n) complex128 tensor. Returns cudaGetLastError().
-int dqgp_states_f64(const double* angles, const int* gates, double* out,
-                    int B, int G, int n, int tpb, int gstride, int sstride,
-                    long long smem_bytes, void* stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        states_kernel_f64, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem_bytes);
-    if (e != cudaSuccess) return (int)e;
+// The float64 instantiations: angles (B, G) float64, the gate table under
+// the states kernels' bit map, out (B, 2^n) complex128. Returns
+// cudaGetLastError().
+int dqgp_states_f64(const double* angles, const int* gates, double* out, int B,
+                    int G, int n, int tpb, long long smem_bytes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (n) {
+#define DQGP_CASE(N)                                                                     \
+  case N:                                                                                \
+    return launch_persistent(warp_states_f64_kernel<N>, Geometry<N, double>::kSamples, \
+                             B, tpb, smem_bytes, s, angles, gates, out, B, G);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
   }
-  const int blocks = (B + tpb - 1) / tpb;
-  states_kernel_f64<<<blocks, tpb, (size_t)smem_bytes, (cudaStream_t)stream>>>(
-      angles, gates, out, B, G, n, gstride, sstride);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
+}
+
+int dqgp_states_f64_blocks_per_sm(int n, int tpb, long long smem_bytes) {
+  switch (n) {
+#define DQGP_CASE(N) \
+  case N:            \
+    return blocks_per_sm(warp_states_f64_kernel<N>, tpb, smem_bytes);
+    DQGP_FOR_EACH_N(DQGP_CASE)
+#undef DQGP_CASE
+  }
+  return -1;
 }
 
 const char* dqgp_cuda_error_string(int code) {

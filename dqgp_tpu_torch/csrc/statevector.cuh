@@ -1,9 +1,7 @@
-// Float64 statevector gate loop shared by the float64 instantiations of the
-// Pauli-feature kernel (K1, pauli_features.cu) and the states kernel (K2,
-// states.cu): the reference-grade path that the JAX package runs in
-// complex128 on CPU and GPU. The float32 kernels keep the state in registers
-// (warp_state.cuh); 2^n complex128 amplitudes over the same lanes do not fit
-// them.
+// Float64 statevector gate loop of the first layout of K1's and K2's
+// float64 kernels (circuit_f64_first_layout.cu), which chip_smoke.py times
+// beside their redesign on the register layout (warp_state.cuh, templated
+// on the real type); the package does not launch it.
 //
 // One thread runs one sample's gate sequence on a state held in shared
 // memory as [amplitude][thread]: amplitude k of the thread's state lies at

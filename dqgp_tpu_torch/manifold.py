@@ -252,8 +252,13 @@ class RiemannianOptimizer:
         self.state = opt_init(manifold.dim)
 
     def step(self, x, grad):
+        x = _f64(x)
+        if self.state.velocity.device != x.device:
+            # the state lives where the points do, as the JAX package's
+            # arrays live on its default device
+            self.state = OptState(*(t.to(x.device) for t in self.state))
         self.state, x_new = opt_step(
-            self.state, _f64(x), _f64(grad), method=self.method, lr=self.lr,
+            self.state, x, _f64(grad), method=self.method, lr=self.lr,
             beta=self.beta, gradient_clip_norm=self.gradient_clip_norm,
             max_step_size=self.max_step_size, period=self.manifold.period)
         return x_new

@@ -2,15 +2,14 @@
 
 * ``pauli_features_from_angles`` (K1, ``csrc/pauli_features.cu``) — port of
   ``dqgp_tpu/ops/pallas_circuit.py::make_pallas_pauli_features_fn``: angles
-  (B, G) -> Pauli features (B, 3n) as [X | Y | Z] blocks, float32 (a
-  sample's state in registers across a warp's lanes, ``csrc/warp_state.cuh``,
-  a gate at a time, then K3's reduction) or float64 (the state in shared
-  memory, ``csrc/statevector.cuh``).
+  (B, G) -> Pauli features (B, 3n) as [X | Y | Z] blocks, float32 or
+  float64: a sample's state in registers across a warp's lanes
+  (``csrc/warp_state.cuh``, templated on the real type: complex64 or
+  complex128), a gate at a time, then K3's reduction.
 * ``states_from_angles`` (K2, ``csrc/states.cu``) — port of
   ``make_pallas_states_fn``: angles (B, G) -> states (B, 2^n), complex64
-  from float32 angles (a sample's state in registers across a warp's lanes,
-  ``csrc/warp_state.cuh``, a gate at a time), complex128 from float64 ones
-  (the state in shared memory, ``csrc/statevector.cuh``).
+  from float32 angles, complex128 from float64 ones: the same register
+  layout and gate sequence, then a coalesced write-out.
 * ``pauli_features_from_angles_fused`` (K3, ``csrc/pauli_features_fused.cu``)
   — port of ``make_pallas_pauli_features_fused_fn``: the same Pauli features
   through the gate-fused program of ``ops/fusion.py``, float32 only like the
@@ -28,11 +27,17 @@
   package has no counterpart kernel: its Pallas kernels have no VJP.
   ``CircuitFunction`` makes the forward wrappers differentiable with it.
 
-K1 (float32) and K3 take qubit q as bit q of the state's index in registers
-and lanes; the states kernels (K2 float32, K4) put the low qubits on the
-lanes so that a sample's lanes write consecutive amplitudes
-(``states_bit``); the adjoint takes each forward kernel's map. The kernels
-see only those physical bits: the tables built here carry the map.
+K1 and K3 take qubit q as bit q of the state's index in registers and
+lanes; the states kernels (K2, K4) put the low qubits on the lanes so that a
+sample's lanes write consecutive amplitudes (``states_bit``); the adjoint
+takes each forward kernel's map. The kernels see only those physical bits:
+the tables built here carry the map. The float64 instantiations of K1 and K2
+share every map, table and geometry rule with the float32 ones; only their
+registers a thread (``f64_min_blocks``) and staging words differ.
+K1's and K2's float64 kernels of the first layout (one thread a sample, the
+state in shared memory: ``csrc/circuit_f64_first_layout.cu``, sized by
+``launch_config`` and ``states_launch_config``) are launched only by
+``chip_smoke.py``, to time them beside the register layout.
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc at first
 use) and adds one to its launch count: ``.launches`` for the float32
@@ -71,16 +76,18 @@ _WARP_THREADS = 256             # the warp kernels' launch bound
 _WARP_SMEM_PER_SM = 224 * 1024  # what an SM's resident blocks share of its 228 KB
 
 _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_GATES_ARGS = [_vp, _vp, _vp] + [_i32] * 4 + [_i64, _vp]  # K1 and K2, float32
+_GATES_ARGS = [_vp, _vp, _vp] + [_i32] * 4 + [_i64, _vp]  # K1 and K2
 _FUSED_ARGS = [_vp] * 6 + [_i32] * 9 + [_i64, _vp]
 _OCCUPANCY_ARGS = [_i32, _i32, _i64]
 _SIGNATURES = {
     SOURCE: {"dqgp_pauli_features": _GATES_ARGS,
-             "dqgp_pauli_features_f64": [_vp, _vp, _vp] + [_i32] * 5 + [_i64, _vp],
-             "dqgp_pauli_features_blocks_per_sm": _OCCUPANCY_ARGS},
+             "dqgp_pauli_features_f64": _GATES_ARGS,
+             "dqgp_pauli_features_blocks_per_sm": _OCCUPANCY_ARGS,
+             "dqgp_pauli_features_f64_blocks_per_sm": _OCCUPANCY_ARGS},
     STATES_SOURCE: {"dqgp_states": _GATES_ARGS,
-                    "dqgp_states_f64": [_vp, _vp, _vp] + [_i32] * 6 + [_i64, _vp],
-                    "dqgp_states_blocks_per_sm": _OCCUPANCY_ARGS},
+                    "dqgp_states_f64": _GATES_ARGS,
+                    "dqgp_states_blocks_per_sm": _OCCUPANCY_ARGS,
+                    "dqgp_states_f64_blocks_per_sm": _OCCUPANCY_ARGS},
     FUSED_SOURCE: {"dqgp_states_fused": _FUSED_ARGS,
                    "dqgp_states_fused_blocks_per_sm": _OCCUPANCY_ARGS},
     FEATURES_FUSED_SOURCE: {"dqgp_pauli_features_fused": _FUSED_ARGS,
@@ -91,7 +98,9 @@ _SIGNATURES = {
 # each warp kernel's (source, launch function, occupancy function)
 _WARP_KERNELS = {
     "K1": (SOURCE, "dqgp_pauli_features", "dqgp_pauli_features_blocks_per_sm"),
+    "K1_f64": (SOURCE, "dqgp_pauli_features_f64", "dqgp_pauli_features_f64_blocks_per_sm"),
     "K2": (STATES_SOURCE, "dqgp_states", "dqgp_states_blocks_per_sm"),
+    "K2_f64": (STATES_SOURCE, "dqgp_states_f64", "dqgp_states_f64_blocks_per_sm"),
     "K3": (FEATURES_FUSED_SOURCE, "dqgp_pauli_features_fused",
            "dqgp_pauli_features_fused_blocks_per_sm"),
     "K4": (FUSED_SOURCE, "dqgp_states_fused", "dqgp_states_fused_blocks_per_sm"),
@@ -168,7 +177,9 @@ def _threads_per_block(smem_bytes) -> int:
 def launch_config(num_qubits: int, num_gates: int,
                   real_bytes: int = 8) -> tuple[int, int, int]:
     """(threads per block, padded angle-row stride, dynamic smem bytes) of
-    K1's shared-memory kernel, the float64 instantiation.
+    K1's float64 kernel in the first layout (``csrc/circuit_f64_first_layout.cu``,
+    which only ``chip_smoke.py`` launches, to time it beside the register
+    layout).
 
     A block holds its threads' states ([amplitude][thread] re and im planes)
     and their angle rows, padded to an odd stride so the per-thread reads hit
@@ -186,7 +197,8 @@ def launch_config(num_qubits: int, num_gates: int,
 def states_launch_config(num_qubits: int, row_len: int,
                          real_bytes: int = 8) -> tuple[int, int, int, int]:
     """(threads per block, padded row stride, padded state stride, dynamic
-    smem bytes) of K2's shared-memory kernel, the float64 instantiation.
+    smem bytes) of K2's float64 kernel in the first layout
+    (``csrc/circuit_f64_first_layout.cu``, launched only by ``chip_smoke.py``).
 
     As K1's float64 kernel, but the [amplitude][thread] planes' stride is
     padded to an odd word count (threads + 1), so the cooperative store's
@@ -246,16 +258,15 @@ def pauli_features_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.
     out = torch.empty((B, 3 * n), dtype=angles.dtype, device=angles.device)
     if B == 0:
         return out
-    gates = _gate_table(circuit, angles.device)  # qubit q on bit q
-    if angles.dtype == torch.float64:
-        tpb, gstride, smem = launch_config(n, G, angles.element_size())
-        _launch(SOURCE, "dqgp_pauli_features_f64", angles.device, angles.data_ptr(),
-                gates.data_ptr(), out.data_ptr(), B, G, n, tpb, gstride, smem)
+    f64 = angles.dtype == torch.float64
+    geo = features_geometry(circuit, angles.element_size())
+    _launch(SOURCE, "dqgp_pauli_features_f64" if f64 else "dqgp_pauli_features",
+            angles.device, angles.data_ptr(),
+            _gate_table(circuit, angles.device).data_ptr(),  # qubit q on bit q
+            out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
+    if f64:
         pauli_features_from_angles.launches_f64 += 1
     else:
-        geo = features_geometry(circuit)
-        _launch(SOURCE, "dqgp_pauli_features", angles.device, angles.data_ptr(),
-                gates.data_ptr(), out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
         pauli_features_from_angles.launches += 1
     return out
 
@@ -283,17 +294,14 @@ def states_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
                       device=angles.device)
     if B == 0:
         return out
-    if angles.dtype == torch.float64:
-        tpb, gstride, sstride, smem = states_launch_config(n, G, angles.element_size())
-        _launch(STATES_SOURCE, "dqgp_states_f64", angles.device, angles.data_ptr(),
-                _gate_table(circuit, angles.device).data_ptr(), out.data_ptr(),
-                B, G, n, tpb, gstride, sstride, smem)
+    f64 = angles.dtype == torch.float64
+    geo = states_geometry(circuit, angles.element_size())
+    _launch(STATES_SOURCE, "dqgp_states_f64" if f64 else "dqgp_states", angles.device,
+            angles.data_ptr(), _gate_table(circuit, angles.device, True).data_ptr(),
+            out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
+    if f64:
         states_from_angles.launches_f64 += 1
     else:
-        geo = states_geometry(circuit)
-        _launch(STATES_SOURCE, "dqgp_states", angles.device, angles.data_ptr(),
-                _gate_table(circuit, angles.device, True).data_ptr(), out.data_ptr(),
-                B, G, n, geo.threads, geo.smem_bytes)
         states_from_angles.launches += 1
     return out
 
@@ -371,7 +379,7 @@ def _fused_device_tables(circuit: Circuit, device: torch.device, states_layout: 
 
 
 class WarpGeometry(NamedTuple):
-    """Launch geometry of a warp kernel (K1 and K2 float32, K3, K4)."""
+    """Launch geometry of a warp kernel (K1 and K2, K3, K4, the adjoint)."""
 
     threads: int          # threads a block
     lanes: int            # lanes a sample's state spreads over
@@ -383,18 +391,22 @@ class WarpGeometry(NamedTuple):
 def _warp_geometry(num_qubits: int, table_words: int, c_bytes: int,
                    row_words: int, what: str, blocks_per_sm: int = 2,
                    threads: int = _WARP_THREADS,
-                   scratch_warp_words: int = 0) -> WarpGeometry:
+                   scratch_warp_words: int = 0, real_bytes: int = 4) -> WarpGeometry:
     """A sample's state lives in registers over max(1, 2^(n-5)) lanes, so a
     warp works on 32 / lanes samples and no state is in shared memory. A
     block holds its int32 tables with the batch loop's two words (padded to
     16 bytes), C and, per warp, one word, its samples' staged rows at an
     odd stride and ``scratch_warp_words`` of the kernel's own (after every
-    warp's rows). ``threads`` a block, halved until ``blocks_per_sm`` blocks
-    (the kernel's launch bound) fit an SM."""
+    warp's rows); rows, the word and scratch are words of ``real_bytes``,
+    and in float64 a warp's rows and word are padded to 16 bytes. ``threads``
+    a block, halved until ``blocks_per_sm`` blocks (the kernel's launch
+    bound) fit an SM."""
     lanes = 1 << max(0, num_qubits - 5)
     per_warp = 32 // lanes
     fixed = 4 * ((table_words + 2 + 3) & ~3) + c_bytes
-    warp_bytes = 4 * (per_warp * (row_words | 1) + 1 + scratch_warp_words)
+    rows = per_warp * (row_words | 1)
+    rows = rows + 1 if real_bytes == 4 else (rows + 2) & ~1
+    warp_bytes = real_bytes * (rows + scratch_warp_words)
     budget = _WARP_SMEM_PER_SM // blocks_per_sm
     tpb = threads
     while tpb > 32 and fixed + tpb // 32 * warp_bytes > budget:
@@ -422,38 +434,69 @@ def fused_geometry(circuit: Circuit) -> WarpGeometry:
                           "the fused program's tables")
 
 
+def f64_min_blocks(num_qubits: int) -> int:
+    """Resident blocks an SM that the float64 instantiations of K1 and K2
+    for ``num_qubits`` ask of the compiler (csrc/warp_state.cuh's
+    F64MinBlocks): two where a lane's complex128 state is at most 64
+    registers (n <= 4), one above, where it is 128."""
+    return 2 if num_qubits <= 4 else 1
+
+
+def state_stage_words(num_qubits: int) -> int:
+    """Words of float64 a warp of K2's float64 kernel stages its states in
+    for the write-out (csrc/warp_state.cuh's store_state_f64): its samples'
+    rows of 2^n complex128, each padded by the lanes a sample where those
+    are fewer than 8; none at 10 qubits, where a sample's lanes write their
+    registers out directly."""
+    lanes = 1 << max(0, num_qubits - 5)
+    if lanes == 32:
+        return 0
+    return 2 * (32 // lanes) * ((1 << num_qubits) + (lanes if lanes < 8 else 0))
+
+
 @functools.lru_cache(maxsize=128)
-def states_geometry(circuit: Circuit) -> WarpGeometry:
-    """K2's float32 launch geometry for ``circuit`` (csrc/states.cu): the
-    table is the (G, 3) gate table and a sample's staged row its G angles."""
-    G = circuit.num_gates
-    return _warp_geometry(circuit.num_qubits, 3 * G, 0, G, "K2's gate table and rows")
+def states_geometry(circuit: Circuit, real_bytes: int = 4) -> WarpGeometry:
+    """K2's launch geometry for ``circuit`` (csrc/states.cu): the table is
+    the (G, 3) gate table and a sample's staged row its G angles, of
+    ``real_bytes`` (4: float32, 8: float64, which stages its states for the
+    write-out too and asks for ``f64_min_blocks`` blocks an SM)."""
+    n, G = circuit.num_qubits, circuit.num_gates
+    if real_bytes == 4:
+        return _warp_geometry(n, 3 * G, 0, G, "K2's gate table and rows")
+    return _warp_geometry(n, 3 * G, 0, G, "K2's float64 gate table, rows and staging",
+                          f64_min_blocks(n), scratch_warp_words=state_stage_words(n),
+                          real_bytes=8)
 
 
-def features_min_blocks(num_qubits: int) -> int:
-    """Resident blocks an SM that K1's float32 instantiation for
-    ``num_qubits`` asks of the compiler (csrc/warp_state.cuh's
-    GateFeaturesMinBlocks): four where a lane's whole state is at most 32
-    registers, two above."""
+def features_min_blocks(num_qubits: int, real_bytes: int = 4) -> int:
+    """Resident blocks an SM that K1's instantiation for ``num_qubits``
+    asks of the compiler (csrc/warp_state.cuh's GateFeaturesMinBlocks):
+    four where a lane's whole state is at most 32 registers, two above; in
+    float64 ``f64_min_blocks``."""
+    if real_bytes == 8:
+        return f64_min_blocks(num_qubits)
     return 4 if num_qubits <= 4 else 2
 
 
 @functools.lru_cache(maxsize=128)
-def features_geometry(circuit: Circuit) -> WarpGeometry:
-    """K1's float32 launch geometry for ``circuit`` (csrc/pauli_features.cu):
-    K2's table and rows, sized so that the blocks an SM the instantiation
-    asks for fit its shared memory. Up to 5 qubits, where a lane holds a
-    sample and a batch is few warps (the north-star step's 84,240 rows are
-    2,633), the blocks are 128 threads: they spread evenly over the SMs
-    where 256-thread blocks leave some SMs with half as much again."""
+def features_geometry(circuit: Circuit, real_bytes: int = 4) -> WarpGeometry:
+    """K1's launch geometry for ``circuit`` (csrc/pauli_features.cu) in
+    float32 (``real_bytes`` 4) or float64 (8): K2's table and rows, sized so
+    that the blocks an SM the instantiation asks for fit its shared memory.
+    Up to 5 qubits, where a lane holds a sample and a batch is few warps
+    (the north-star step's 84,240 rows are 2,633), the blocks are 128
+    threads: they spread evenly over the SMs where 256-thread blocks leave
+    some SMs with half as much again."""
     n, G = circuit.num_qubits, circuit.num_gates
     return _warp_geometry(n, 3 * G, 0, G, "K1's gate table and rows",
-                          features_min_blocks(n), _WARP_THREADS // 2 if n <= 5 else _WARP_THREADS)
+                          features_min_blocks(n, real_bytes),
+                          _WARP_THREADS // 2 if n <= 5 else _WARP_THREADS,
+                          real_bytes=real_bytes)
 
 
 def blocks_per_sm(kernel: str, geo: WarpGeometry, num_qubits: int) -> int:
-    """Resident blocks an SM holds of warp kernel ``kernel`` ("K1", "K2",
-    "K3", "K4" or "vjp") at this geometry, as the CUDA occupancy calculator reckons it from
+    """Resident blocks an SM holds of warp kernel ``kernel`` ("K1",
+    "K1_f64", "K2", "K2_f64", "K3", "K4" or "vjp") at this geometry, as the CUDA occupancy calculator reckons it from
     the build's registers and ``geo``'s shared memory (card only)."""
     source, _, fn = _WARP_KERNELS[kernel]
     return getattr(_library(source), fn)(num_qubits, geo.threads, geo.smem_bytes)

@@ -1,8 +1,8 @@
 """Tests that need the card: the CUDA circuit kernels — Pauli features (K1,
 float32 and float64), states (K2, float32 and float64), fused-program Pauli
 features (K3), fused-program states (K4) and the adjoint (the backward of K1
-and K2) — against their plain PyTorch versions, on CUDA tensors. They skip
-where there is no card.
+and K2) — against their plain PyTorch versions, on CUDA tensors, and the
+manifold optimizer on points on the card. They skip where there is no card.
 
 On a GPU host, where JAX need not be installed (the port does not use it),
 bypass conftest.py, which imports JAX:
@@ -274,6 +274,52 @@ def test_host_condition_numbers_on_card_match_the_cpu(cuda):
     assert K1.launch_counts()["K1_f64"] == 2 * 2  # agents x 16-row chunks
     np.testing.assert_allclose(got, host_condition_numbers(spec, splits, Z, device="cpu"),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("enc", ENCODING_TYPES)
+def test_f64_kernels_hold_large_angles_on_card(cuda, enc):
+    """K1's and K2's float64 kernels (the register layout, warp_state.cuh's
+    float64 sin_cos) at 1e-12 of their plain versions with angles of
+    +-1e6, +-1e15, +-1e300, 2^31 and next to multiples of pi/2 among the
+    random ones, for every qubit count."""
+    import numpy as np
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    special = torch.tensor([1e6, -1e6, 1e15, -1e15, 1e300, -1e300, 2.0 ** 31,
+                            np.pi / 2, np.pi, -3 * np.pi, np.nextafter(np.pi, 4.0),
+                            1e5 * np.pi], dtype=torch.float64, device=cuda)
+    for n in range(1, K1.MAX_QUBITS + 1):
+        c = build_circuit(enc, n, 2, 2)
+        a = _angles(gen, c, 130, torch.float64)
+        flat = a.view(-1)
+        k = flat[::3].numel()
+        flat[::3] = special.repeat(k // len(special) + 1)[:k]
+        got_f = K1.pauli_features_from_angles(c, a)
+        got_s = K1.states_from_angles(c, a)
+        torch.cuda.synchronize()
+        assert float((got_f - K1.pauli_features_reference(c, a)).abs().max()) <= 1e-12
+        assert float((got_s - K1.states_reference(c, a)).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("method", ["momentum", "conjugate_gradient"])
+def test_riemannian_optimizer_steps_on_card(cuda, method):
+    """RiemannianOptimizer on points on the card: its state follows them
+    there, and the steps are the CPU's."""
+    import numpy as np
+
+    from dqgp_tpu_torch import manifold as M
+
+    on_card, on_cpu = (M.RiemannianOptimizer(M.TorusManifold(9), method=method)
+                       for _ in range(2))
+    rng = np.random.RandomState(5)
+    x = rng.uniform(0, np.pi, 9)
+    xc, xh = torch.as_tensor(x, device=cuda), torch.as_tensor(x)
+    for k in range(4):
+        g = rng.randn(9) * (10.0 if k % 2 else 0.05)
+        xc = on_card.step(xc, torch.as_tensor(g, device=cuda))
+        xh = on_cpu.step(xh, torch.as_tensor(g))
+        assert xc.device == cuda and all(t.device == cuda for t in on_card.state)
+        np.testing.assert_allclose(xc.cpu().numpy(), xh.numpy(), rtol=0, atol=1e-12)
 
 
 def test_flag_solve_is_captured(cuda):

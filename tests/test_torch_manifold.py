@@ -139,6 +139,34 @@ def test_opt_step_sequences_match_jax(method):
         TM.opt_step(st_t, _t(x_t), _t(g), method="adam")
 
 
+@pytest.mark.parametrize("method", ["gradient_descent", "momentum", "conjugate_gradient"])
+def test_optimizer_state_lives_on_the_points_device(method):
+    """RiemannianOptimizer steps as the JAX package's does, and its state
+    lives on the device of the points it is stepped with. The port kept it
+    on the CPU whatever the point's device (a fault of the port: momentum
+    and conjugate gradient raised on points on the card). The meta device
+    stands in for the card here; tests/test_torch_cuda.py steps on the
+    card."""
+    opt = TM.RiemannianOptimizer(TM.TorusManifold(9), method=method)
+    jopt = JM.RiemannianOptimizer(JM.TorusManifold(9), method=method)
+    rng = np.random.RandomState(12)
+    x_t = x_j = rng.uniform(0, np.pi, 9)
+    for k in range(4):
+        g = rng.randn(9) * (10.0 if k % 2 else 0.05)
+        x_t, x_j = opt.step(_t(x_t), _t(g)), jopt.step(_j(x_j), _j(g))
+        _same4(x_t.numpy(), x_j)
+        _same4(opt.state.velocity.numpy(), jopt.state.velocity)
+        assert all(t.device == x_t.device for t in opt.state)
+        assert int(opt.state.iteration) == int(jopt.state.iteration) == k + 1
+        x_t, x_j = x_t.numpy(), np.asarray(x_j)
+    meta = TM.RiemannianOptimizer(TM.TorusManifold(9), method=method)
+    x = torch.zeros(9, dtype=torch.float64, device="meta")
+    for _ in range(2):
+        x = meta.step(x, torch.ones(9, dtype=torch.float64, device="meta"))
+        assert x.device.type == "meta"
+        assert all(t.device.type == "meta" for t in meta.state)
+
+
 def test_clip_and_cap():
     for scale in (1e-3, 0.5, 3.0, 1e3):
         g = np.random.RandomState(8).randn(9) * scale

@@ -522,8 +522,9 @@ def test_card_path_of_k4_takes_the_angles(n):
 
 @pytest.mark.parametrize("n", [3, 6, 10])
 def test_card_path_of_k2_by_dtype(n):
-    """float32 angles take the warp kernel with the remapped gate table,
-    float64 angles the shared-memory kernel with the logical one."""
+    """float32 angles take the warp kernel, float64 angles its float64
+    instantiation, both with the remapped gate table and each with the
+    geometry of its real type."""
     c = _circuit("kyriienko", n, 1)
     calls = []
     with mock.patch.object(K, "_is_cuda", lambda t: True), \
@@ -540,15 +541,16 @@ def test_card_path_of_k2_by_dtype(n):
     geo = K.states_geometry(c)
     assert f32[1] == "dqgp_states" and f32[4] == K._gate_table(c, a32.device, True).data_ptr()
     assert list(f32[6:]) == [5, c.num_gates, n, geo.threads, geo.smem_bytes]
-    assert f64[1] == "dqgp_states_f64" and f64[4] == K._gate_table(c, a64.device).data_ptr()
-    assert list(f64[6:]) == [5, c.num_gates, n, *K.states_launch_config(n, c.num_gates, 8)]
+    geo64 = K.states_geometry(c, 8)
+    assert f64[1] == "dqgp_states_f64" and f64[4] == f32[4]
+    assert list(f64[6:]) == [5, c.num_gates, n, geo64.threads, geo64.smem_bytes]
 
 
 @pytest.mark.parametrize("n", [3, 4, 6, 10])
 def test_card_path_of_k1_by_dtype(n):
-    """float32 angles take the warp kernel, float64 angles the shared-memory
-    kernel, both with the gate table that has qubit q on bit q; each ticks
-    its own counter."""
+    """float32 angles take the warp kernel, float64 angles its float64
+    instantiation, both with the gate table that has qubit q on bit q and
+    each with the geometry of its real type; each ticks its own counter."""
     c = _circuit("chebyshev", n, 2)
     calls = []
     with mock.patch.object(K, "_is_cuda", lambda t: True), \
@@ -573,10 +575,13 @@ def test_card_path_of_k1_by_dtype(n):
     assert f32[:2] == (K.SOURCE, "dqgp_pauli_features")
     assert f32[3:6] == (a32.data_ptr(), table.data_ptr(), out32.data_ptr())
     assert list(f32[6:]) == [5, c.num_gates, n, geo.threads, geo.smem_bytes]
+    geo64 = K.features_geometry(c, 8)
     assert f64[:2] == (K.SOURCE, "dqgp_pauli_features_f64") and f64[4] == table.data_ptr()
-    assert list(f64[6:]) == [5, c.num_gates, n, *K.launch_config(n, c.num_gates, 8)]
+    assert list(f64[6:]) == [5, c.num_gates, n, geo64.threads, geo64.smem_bytes]
     assert K._WARP_KERNELS["K1"] == (K.SOURCE, "dqgp_pauli_features",
                                      "dqgp_pauli_features_blocks_per_sm")
+    assert K._WARP_KERNELS["K1_f64"] == (K.SOURCE, "dqgp_pauli_features_f64",
+                                         "dqgp_pauli_features_f64_blocks_per_sm")
 
 
 def test_circuit_keys_the_caches_cheaply():
