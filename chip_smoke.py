@@ -184,6 +184,34 @@ Phases, one line each; any failure raises and exits non-zero:
              memory; K1 float64 at the 16-row chunk's B=13,504 in turns with
              its first layout and plain version.
 
+17. cli    — the port's CLI (``dqgp_tpu_torch.cli``) on the card at full
+             width, against the JAX package's CLI on the same flags
+             (tests/fixtures/torch_port_cli.json,
+             scripts/record_torch_port_cli.py). Run A: the README's SRTM
+             command (BASELINE config #2: maharashtra, 1,000 normalized rows,
+             chebyshev 4 qubits / 3 layers, projected Matérn, 4 agents) on
+             the stand-in tiles of scripts/make_synthetic_tiles.py (written
+             into srtm_data/ where missing, their digests JAX's), with
+             --fit-noise --predictive-noise and 5 iterations: K1 in the step,
+             CV and predicts, K1 float64 in the backfill and the noise fit.
+             Run B: config #5 in the quantum-dataset mode: K2, K2 float64 in
+             the dataset and the backfill. Each run's launches exactly
+             (cli_launches_expected), no plain engine, the dataset after the
+             split (X exact; Y within 1e-12 / 1e-6), the summary's keys and
+             stop; run A's z and CV-NLPD over CLI_HELD_ITERS (the float32
+             Gram forks the SRTM trajectory from iteration 2: the
+             deviations of all 5 are printed), its condition numbers'
+             buckets, its own test and train NLPD (0.05), its fitted sigma
+             (rtol 1e-3) and test and train NLPD (0.05) at JAX's own z; run B's agent NLLs (rtol 1e-4), CV and
+             test NLPD (config #5's bars) and ground-truth comparison (each
+             metric of the trained z and of theta*: the NLPDs at the NLPD
+             bar, the rest at rtol 1e-5; the verdict, which counts winners
+             decided by differences below those bars, is printed). Then
+             ``python -m dqgp_tpu_torch.cli ... --dataset-only`` in a
+             subprocess. The ``cli`` line: each run's stage seconds (load,
+             split, train, backfill, noise fit, predicts), launches and
+             deviations.
+
 The last two lines are a JSON record of the kernels (K1, K1_f64, K2,
 K2_f64, K3, K4 and the adjoint, each with its bound: the larger of its bytes
 over the card's memory rate and its operations over the rate of their type)
@@ -213,6 +241,10 @@ adjoint kernel.
 
 runs phases 1, 2 and 16 only (no result lines): config #7 with its
 condition numbers.
+
+    python3 chip_smoke.py --cli
+
+runs phases 1, 2 and 17 only (no result lines): the port's CLI.
 """
 
 import functools
@@ -222,6 +254,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -327,6 +360,38 @@ VJP_SHAPES = (("north star", N_AGENTS * 260, "features"),
               ("config #7", C7_AGENTS * C7_NMAX, "features"))
 CONFIG7_AUTODIFF_FIXTURE = os.path.join(REPO, "tests", "fixtures",
                                         "torch_port_config7_autodiff.json")
+
+# phase 17: the port's CLI, held to tests/fixtures/torch_port_cli.json (the
+# JAX package's CLI on the same flags, scripts/record_torch_port_cli.py).
+# Run A is the README's SRTM command (BASELINE config #2, README.md:77-81)
+# on the stand-in tiles of scripts/make_synthetic_tiles.py, with the noise
+# fit and 5 of --max-iter's default 100 iterations; run B is BASELINE config
+# #5 in the CLI's quantum-dataset mode.
+CLI_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_cli.json")
+CLI_ITERS = 5
+CLI_RUNS = {
+    "A": ["--real-world-dataset", "srtm", "--srtm-region", "maharashtra",
+          "--dataset-max-samples", "1000", "--dataset-normalize",
+          "--encoding", "chebyshev", "--kernel-type", "projected", "--num-layers", "3",
+          "--num-qubits", "4", "--outer-kernel", "matern", "--rho", "100", "--L", "100",
+          "--n-agents", "4",
+          "--fit-noise", "--predictive-noise", "--no-plot", "--max-iter", str(CLI_ITERS)],
+    "B": ["--input-dim", "1", "--n-dataset", "1000", "--encoding", "kyriienko",
+          "--num-qubits", "6", "--num-layers", "1", "--kernel-type", "fidelity",
+          "--n-agents", "4", "--riemannian-method", "conjugate_gradient",
+          "--seed", "42", "--data-seed", "42", "--no-plot", "--max-iter", str(CLI_ITERS)],
+}
+SRTM_DIR = os.path.join(REPO, "srtm_data")
+SIGMA_RTOL = 1e-3   # run A's fitted noise, at JAX's own z
+CLI_Y_TOL = {"A": 1e-12,  # the Y scaling's summation order
+             "B": 1e-6}   # config #5's data: its float64 Gram on the card (phase 7's bar)
+# Run A's z and CV-NLPD are held over this prefix of its iterations: the
+# float32 Matérn Gram's last ulps fork the SRTM trajectory from iteration 2
+# (ROADMAP Queue 3; tests/test_torch_cli.py follows JAX's run exactly with
+# JAX's float32 Grams in the step). Its noise fit and NLPDs are then held at
+# JAX's own z; every deviation of its own run is printed.
+CLI_HELD_ITERS = 1
+GT_METRIC_RTOL = 1e-5   # run B's prediction metrics but the NLPD (float32 features)
 
 
 def array_digest(a) -> str:
@@ -2227,6 +2292,259 @@ def config7_autodiff_phase(dev, smi: str, full, streamed_step_ms: float) -> dict
                         "grad_bar": g_bar}}
 
 
+# --------------------------------------------------------------------------
+# phase 17: the port's CLI
+# --------------------------------------------------------------------------
+
+# every hand kernel's plain version, which its wrapper runs only for a tensor
+# on the CPU: phase 17 counts their calls
+PLAIN_ENGINES = ("pauli_features_reference", "states_reference",
+                 "pauli_features_fused_reference", "states_fused_reference",
+                 "circuit_vjp_reference")
+
+
+def ensure_srtm_tiles(tiles) -> None:
+    """Write the stand-in SRTM tiles into srtm_data/ where one of ``tiles``
+    is missing: scripts/make_synthetic_tiles.py, run as a subprocess."""
+    if all(os.path.exists(os.path.join(SRTM_DIR, f"{t}.hgt")) for t in tiles):
+        return
+    subprocess.run([sys.executable, os.path.join(REPO, "scripts", "make_synthetic_tiles.py"),
+                    SRTM_DIR], check=True, cwd=REPO, capture_output=True)
+
+
+def file_digest(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def run_port_cli(flags, log_path: str, cwd: str = REPO):
+    """The port's ``cli.run(flags)`` in ``cwd`` (the README's SRTM command
+    reads ./srtm_data) with ``--metrics-json`` beside ``log_path``, which
+    gets the run's standard output. Returns (the summary
+    as the metrics JSON holds it, the stage seconds, the split the CLI made:
+    [X_train, X_test, Y_train, Y_test], the wall seconds of the run)."""
+    import contextlib
+    import io
+
+    import dqgp_tpu_torch.data as D
+    from dqgp_tpu_torch import cli
+
+    metrics = os.path.splitext(log_path)[0] + ".json"
+    split = []
+    real_split = D.train_test_split_np
+
+    def capture(*args, **kwargs):
+        out = real_split(*args, **kwargs)
+        split.extend(out[:4])
+        return out
+
+    out = io.StringIO()
+    D.train_test_split_np = capture
+    t0 = time.perf_counter()
+    try:
+        with contextlib.chdir(cwd), contextlib.redirect_stdout(out):
+            _, stages = cli.run(list(flags) + ["--metrics-json", metrics])
+    finally:
+        D.train_test_split_np = real_split
+    wall = time.perf_counter() - t0
+    with open(log_path, "w") as f:
+        f.write(out.getvalue())
+    with open(metrics) as f:
+        return json.load(f), stages, split, wall
+
+
+def _cond_buckets(summary):
+    """The reference's bucket of every recorded condition number (the
+    metrics JSON writes an infinite one as null)."""
+    return [[cond_bucket(np.inf if c is None else c) for c in h["condition_numbers"]]
+            for h in summary["nll_history"]]
+
+
+def hold_cli_run(name: str, summary, split, ref) -> dict:
+    """Run ``name`` of the port's CLI against the JAX CLI's (``ref``, the
+    fixture's run): the dataset after the split, the summary's keys, the
+    stop, then run A's trajectory over its held prefix and its condition
+    numbers' buckets, or run B's agent NLLs, CV and test NLPD (config #5's
+    bars) and ground-truth comparison. Returns the deviations."""
+    want, ds = ref["summary"], ref["dataset"]
+    X_tr, X_te, Y_tr, Y_te = split
+    check(array_digest(X_tr) == ds["x_train_sha256"]
+          and array_digest(X_te) == ds["x_test_sha256"],
+          f"run {name}: X after the split differs from JAX's")
+    y_dev = float(max(np.abs(Y_tr - np.array(ds["Y_train"])).max(),
+                      np.abs(Y_te - np.array(ds["Y_test"])).max()))
+    check(y_dev <= CLI_Y_TOL[name], f"run {name}: Y deviates {y_dev} > {CLI_Y_TOL[name]}")
+    check(set(summary) == set(want), f"run {name}: summary keys {sorted(set(summary) ^ set(want))} "
+                                     f"differ from JAX's")
+    check(summary["iterations"] == want["iterations"]
+          and summary["converged_by"] == want["converged_by"],
+          f"run {name}: stopped {summary['converged_by']}@{summary['iterations']}, JAX "
+          f"{want['converged_by']}@{want['iterations']}")
+    z = [h["consensus_params"] for h in summary["cv_history"]]
+    cv = np.array([h["consensus_cv_score"] for h in summary["cv_history"]])
+    dev = {"Y": y_dev}
+    if name == "A":
+        z_dev, cv_dev, held, first = gate_deviations(z, cv, ref)
+        dev.update(z=z_dev.tolist(), cv_nlpd=cv_dev.tolist(), held_iterations=held,
+                   first_departure=first)
+        for part in ("test", "train"):
+            dev[f"{part}_nlpd"] = summary[f"{part}_metrics"]["nlpd"] - want[f"{part}_metrics"]["nlpd"]
+        dev["sigma_rel"] = (summary["noise_fit"]["fitted_noise_std"]
+                            / want["noise_fit"]["fitted_noise_std"] - 1)
+        nll1, nll1_ref = (np.array(h["nll_history"][0]["agent_losses"]) for h in (summary, want))
+        dev["agent_nll_rel_iteration_1"] = float((np.abs(nll1 - nll1_ref) / np.abs(nll1_ref)).max())
+        check(held >= CLI_HELD_ITERS, f"run A leaves its bars at {first}, inside the "
+                                      f"held prefix of {CLI_HELD_ITERS} iterations")
+        check(max(abs(dev["test_nlpd"]), abs(dev["train_nlpd"])) <= NLPD_TOL,
+              f"run A: test / train NLPD deviate {dev['test_nlpd']} / {dev['train_nlpd']} "
+              f"beyond {NLPD_TOL}")
+        check(_cond_buckets(summary) == _cond_buckets(want),
+              f"run A: host condition numbers {[h['condition_numbers'] for h in summary['nll_history']]} "
+              f"not in JAX's buckets")
+        return dev
+    z_dev = float(np.abs(np.array(z) - np.array(ref["z_trajectory"])).max())
+    nll = np.array([h["agent_losses"] for h in summary["nll_history"]])
+    nll_ref = np.array([h["agent_losses"] for h in want["nll_history"]])
+    nll_dev = float((np.abs(nll - nll_ref) / np.abs(nll_ref)).max())
+    cv32 = np.array(ref["cv_nlpd"])
+    cv_bar = np.maximum(NLPD_TOL, 2 * np.abs(cv32 - np.array(ref["cv_nlpd_f64_features"])))
+    t32 = want["test_metrics"]["nlpd"]
+    t_bar = max(NLPD_TOL, 2 * abs(t32 - ref["test_nlpd_f64_features"]))
+    t_dev = abs(summary["test_metrics"]["nlpd"] - t32)
+    dev.update(z=z_dev, agent_nll_rel=nll_dev,
+               cv_nlpd_over_bar=float((np.abs(cv - cv32) / cv_bar).max()),
+               test_nlpd=t_dev, test_nlpd_bar=t_bar)
+    check(z_dev <= Z_TOL, f"run B: z deviates {z_dev} > {Z_TOL}")
+    check(nll_dev <= NLL_RTOL, f"run B: agent NLLs deviate {nll_dev} > {NLL_RTOL}")
+    check(dev["cv_nlpd_over_bar"] <= 1.0, f"run B: CV-NLPD {cv.tolist()} vs JAX f32 "
+                                          f"{cv32.tolist()} beyond the bars {cv_bar.tolist()}")
+    check(t_dev <= t_bar, f"run B: test NLPD deviates {t_dev} > {t_bar}")
+    # The ground-truth comparison: each metric's trained and ground-truth
+    # values, the NLPDs at the NLPD bar, the rest at GT_METRIC_RTOL. Its
+    # winners and verdict are printed, not held: on config #5 the trained z
+    # and theta* predict alike to ~1e-7 relative and their NLPDs differ by
+    # less than the NLPD bar, so the signs the verdict counts are float32 noise.
+    rows, want_rows = summary["gt_comparison"]["metrics"], want["gt_comparison"]["metrics"]
+    check(rows.keys() == want_rows.keys(), f"run B: ground-truth comparison of {list(rows)}")
+    worst = 0.0
+    for k, w in want_rows.items():
+        for side in ("trained", "ground_truth"):
+            err = abs(rows[k][side] - w[side])
+            bar = t_bar if k == "nlpd" else GT_METRIC_RTOL * abs(w[side])
+            worst = max(worst, err / bar if bar else float(err > 0))
+    dev.update(gt_metrics_over_bar=worst, gt_verdict=[summary["gt_comparison"]["verdict"],
+                                                      want["gt_comparison"]["verdict"]])
+    check(worst <= 1.0, f"run B: ground-truth comparison {rows} vs JAX's {want_rows}")
+    return dev
+
+
+def cli_at_reference_z(split, ref, device) -> dict:
+    """Run A's noise fit and predictions at JAX's own selected z (the
+    fixture's ``best_cv_z``) on the CLI's split: the fitted sigma within
+    SIGMA_RTOL of JAX's, and with JAX's sigma, as ``--predictive-noise``
+    scores them, the test and train NLPD within NLPD_TOL of JAX's."""
+    import torch
+
+    from dqgp_tpu_torch.models.gp import evaluate_predictions, fit_noise_std, predict_quantum_gp
+
+    want = ref["summary"]
+    X_tr, X_te, Y_tr, Y_te = split
+    spec = northstar_spec()   # run A's circuit and kernel are the north star's
+    z = np.asarray(want["best_cv_z"], np.float64)
+    sigma = want["noise_fit"]["fitted_noise_std"]
+    fit = fit_noise_std(spec, X_tr, Y_tr, z, current_noise_std=want["config"]["noise_std"],
+                        device=device)
+    out = {"sigma_rel": abs(fit.noise_std / sigma - 1)}
+    check(out["sigma_rel"] <= SIGMA_RTOL, f"run A at JAX's z: fitted sigma {fit.noise_std} vs "
+                                          f"JAX's {sigma} beyond rtol {SIGMA_RTOL}")
+    X_t, Y_t = torch.as_tensor(X_tr, device=device), torch.as_tensor(Y_tr, device=device)
+    for part, X, Y in (("test", X_te, Y_te), ("train", X_tr, Y_tr)):
+        mean, var = predict_quantum_gp(spec, X_t, Y_t, torch.as_tensor(X, device=device),
+                                       torch.as_tensor(z, device=device), noise_std=sigma)
+        got = evaluate_predictions(Y, mean, var + sigma ** 2)["nlpd"]
+        out[f"{part}_nlpd"] = got - want[f"{part}_metrics"]["nlpd"]
+        check(abs(out[f"{part}_nlpd"]) <= NLPD_TOL,
+              f"run A at JAX's z: {part} NLPD {got} vs JAX's "
+              f"{want[f'{part}_metrics']['nlpd']} beyond {NLPD_TOL}")
+    return out
+
+
+def cli_launches_expected(name: str, summary) -> dict:
+    """Each hand kernel's launches in run ``name``: the step and the CV pass
+    an iteration (and a float64 CV re-score where one was flagged), two a
+    predict (training and evaluated rows: test, train, and for run B the
+    ground-truth parameters' test), one float64 an agent and 16 z rows in
+    the backfill, one float64 for run A's noise fit and for run B's dataset."""
+    iters = summary["iterations"]
+    rescores = sum(h["solver"] == "float64-rescue" for h in summary["cv_history"])
+    backfill = backfill_launches(iters, summary["config"]["n_agents"])
+    if name == "A":
+        return {"K1": 2 * iters + 4 + rescores, "K1_f64": backfill + 1}
+    return {"K2": 2 * iters + 6 + rescores, "K2_f64": 1 + backfill}
+
+
+def cli_phase(dev, smi: str) -> dict:
+    """Phase 17: runs A and B through the port's CLI on the card, held to
+    tests/fixtures/torch_port_cli.json; run A's noise fit and NLPDs at JAX's
+    z; the module entry point in a subprocess. Prints the ``cli`` line;
+    returns each run's launches."""
+    import contextlib
+    from unittest import mock
+
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    t_phase = time.time()
+    with open(CLI_FIXTURE) as f:
+        fixture = json.load(f)
+    tiles = fixture["runs"]["A"]["tiles_sha256"]
+    ensure_srtm_tiles(tiles)
+    for t, digest in tiles.items():
+        check(file_digest(os.path.join(SRTM_DIR, f"{t}.hgt")) == digest,
+              f"stand-in tile {t} differs from the one JAX's run read")
+    report = {}
+    # the runs' own output and metrics JSON, read back and not printed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as out_dir:
+        for name, flags in CLI_RUNS.items():
+            ref = fixture["runs"][name]
+            K.reset_launch_counts()
+            with contextlib.ExitStack() as patches:
+                plain = {n: patches.enter_context(mock.patch.object(K, n, wraps=getattr(K, n)))
+                         for n in PLAIN_ENGINES}
+                summary, stages, split, wall = run_port_cli(
+                    flags + ["--device", str(dev)], os.path.join(out_dir, f"run_{name}.log"))
+            counts = {k: v for k, v in K.launch_counts().items() if v}
+            want = cli_launches_expected(name, summary)
+            check(counts == want, f"run {name}: launches {counts}, want {want} and no other kernel")
+            plain = {n: m.call_count for n, m in plain.items() if m.call_count}
+            check(not plain, f"run {name} reached a plain engine on the card: {plain}")
+            dev_ = hold_cli_run(name, summary, split, ref)
+            if name == "A":
+                dev_["at_jax_z"] = cli_at_reference_z(split, ref, dev)
+            iter_times = [h["iter_time"] for h in summary["nll_history"]]
+            report[name] = {
+                "stages_s": stages, "wall_s": wall,
+                "other_s": wall - sum(stages.values()),
+                "iterations": summary["iterations"],
+                "iteration_ms_first": 1e3 * iter_times[0],
+                "iteration_ms_steady_median": 1e3 * float(np.median(iter_times[1:])),
+                "launches": counts, "deviations": dev_,
+                "test_nlpd": summary["test_metrics"]["nlpd"],
+                "jax_test_nlpd": ref["summary"]["test_metrics"]["nlpd"],
+            }
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "dqgp_tpu_torch.cli", *CLI_RUNS["B"], "--dataset-only",
+         "--device", "cuda"], cwd=REPO, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and "Stopping after dataset loading" in proc.stdout,
+          f"python -m dqgp_tpu_torch.cli --dataset-only exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    report["module_entry_point_s"] = time.time() - t0
+    report["phase_s"] = time.time() - t_phase
+    report["device"] = smi
+    print("cli " + json.dumps(report, default=float), flush=True)
+    return {name: report[name]["launches"] for name in CLI_RUNS}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2246,6 +2564,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cond", action="store_true",
                     help="phases 1, 2 and 16 (config #7 with its condition numbers) only, "
                          "without the result lines")
+    ap.add_argument("--cli", action="store_true",
+                    help="phases 1, 2 and 17 (the README's SRTM command and config #5 "
+                         "through the port's CLI) only, without the result lines")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2346,7 +2667,9 @@ def main(argv=None) -> int:
     if args.cond:
         X_tr, Y_tr, _, _, c7_splits = config7_problem(C7_SAMPLES, C7_AGENTS)
         config7_cond_phase(dev, smi, (X_tr, Y_tr, c7_splits), rand_angles)
-    if args.k1 or args.k3 or args.states or args.vjp or args.cond:
+    if args.cli:
+        cli_phase(dev, smi)
+    if args.k1 or args.k3 or args.states or args.vjp or args.cond or args.cli:
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
@@ -2568,12 +2891,16 @@ def main(argv=None) -> int:
 
     k3, adjoint7, cond7 = config7_phases(dev, smi, rand_angles)
 
+    # 17. the port's CLI: the README's SRTM command and config #5 -----------
+    cli_launches = cli_phase(dev, smi)
+
     print(json.dumps({"kernels": [
         {"name": "pauli_features (K1)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:392",
          "launches": launches, "max_abs_err": worst, **k1,
-         "library_ms": None, "gate_25_iterations": gate, "chained": chained["K1"]},
+         "library_ms": None, "gate_25_iterations": gate, "chained": chained["K1"],
+         "launches_cli_run_a": cli_launches["A"]["K1"]},
         {"name": "pauli_features float64 (K1_f64)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features.cu",
          "replaces": "dqgp_tpu/ops/statevector.py:148",
@@ -2583,12 +2910,14 @@ def main(argv=None) -> int:
          **{k: cond7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
                                   "first_layout_ms", "first_layout_device_ms", "B")},
          "library_ms": None, "config7_cond": cond7,
-         "launches_northstar_backfill": launches_f64, "backfill_shapes": backfill["K1_f64"]},
+         "launches_northstar_backfill": launches_f64, "backfill_shapes": backfill["K1_f64"],
+         "launches_cli_run_a": cli_launches["A"]["K1_f64"]},
         {"name": "states (K2)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:238",
          "launches": fcounts["K2"], "max_abs_err": err["K2"], **st["K2"],
-         "library_ms": None, "chained": chained["K2"]},
+         "library_ms": None, "chained": chained["K2"],
+         "launches_cli_run_b": cli_launches["B"]["K2"]},
         {"name": "states float64 (K2_f64)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states.cu",
          "replaces": "dqgp_tpu/ops/statevector.py:148",
@@ -2598,7 +2927,8 @@ def main(argv=None) -> int:
          **{k: st["K2_f64"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
                                          "first_layout_ms", "first_layout_device_ms", "B",
                                          "at_10_qubits")},
-         "library_ms": None, "backfill_shapes": backfill["K2_f64"]},
+         "library_ms": None, "backfill_shapes": backfill["K2_f64"],
+         "launches_cli_run_b": cli_launches["B"]["K2_f64"]},
         {"name": "pauli_features_fused (K3)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features_fused.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:330", **k3},

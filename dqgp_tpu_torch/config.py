@@ -47,6 +47,17 @@ def resolve_dtype_mode(mode: str) -> str:
     return mode
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device where there is none
+    raises rather than leaving the work to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card unless asked "
+                           "otherwise; pass device='cpu' (the CLI's --device cpu) to "
+                           "run on the CPU")
+    return dev
+
+
 def torch_dtype(mode: str) -> torch.dtype:
     """The torch dtype of a GP/CV dtype mode ("auto" resolves first)."""
     return _GP_DTYPES[resolve_dtype_mode(mode)]

@@ -14,10 +14,12 @@ package and the reference:
   run in numpy on the host, as in the JAX package.
 * ``generate_data_numpy`` (main.py:457-522): 1D sine mix, 2D log-normalized
   Goldstein-Price, 3D negated Hartmann.
+* ``save_quantum_dataset`` (main.py:433-455): the CSV export.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional, Tuple
 
@@ -145,3 +147,14 @@ def generate_data_numpy(
     else:
         raise ValueError(f"Unsupported input dimension: {input_dim}")
     return X, Y
+
+
+def save_quantum_dataset(X, Y, dataset_name: str, output_dir: str = "quantum_datasets") -> str:
+    """CSV export ``{name}_{d}d_{N}.csv`` with header ``X1,...,Xd,Y``
+    (main.py:433-455). Returns the file's path."""
+    os.makedirs(output_dir, exist_ok=True)
+    combined = np.column_stack((X, Y))
+    filename = os.path.join(output_dir, f"{dataset_name}_{X.shape[1]}d_{X.shape[0]}.csv")
+    header = ",".join([f"X{i+1}" for i in range(X.shape[1])] + ["Y"])
+    np.savetxt(filename, combined, delimiter=",", header=header, comments="")
+    return filename

@@ -128,6 +128,8 @@ class TrainResult:
     error_best: float
     total_time: float
     chain_stats: Optional[Dict] = None  # chained dispatch: see _ChunkRunner
+    cond_backfill_time: Optional[float] = None  # s of the host-mode backfill
+                                    # after training (None: no backfill)
 
 
 def init_admm_state(n_agents: int, num_parameters: int, seed: int, rho: float,
@@ -256,6 +258,15 @@ def _check_unported(cfg: TrainConfig) -> None:
                 f"TrainConfig.{name}={getattr(cfg, name)!r}: meshes are not ported "
                 f"(ROADMAP Queue 1 item 11, multi-device); the port trains on one "
                 f"device and takes only {name}={default!r}")
+
+
+def check_config(cfg: TrainConfig) -> TrainConfig:
+    """Raise on a field the port does not have (meshes: NotImplementedError;
+    "mixed" dtypes: ValueError); return ``cfg`` with its dtype modes
+    resolved."""
+    _check_unported(cfg)
+    return dataclasses.replace(cfg, gp_dtype=config.resolve_dtype_mode(cfg.gp_dtype),
+                               cv_dtype=config.resolve_dtype_mode(cfg.cv_dtype))
 
 
 def _cond_status(c: float, compute_cond: bool) -> str:
@@ -388,9 +399,7 @@ def train(
     """Run the distributed Riemannian-ADMM optimization on ``device``."""
     device = torch.device(device)
     config.set_precision_policy()
-    _check_unported(cfg)
-    cfg = dataclasses.replace(cfg, gp_dtype=config.resolve_dtype_mode(cfg.gp_dtype),
-                              cv_dtype=config.resolve_dtype_mode(cfg.cv_dtype))
+    cfg = check_config(cfg)
     n_agents = len(agent_data_splits)
     P = spec.num_parameters
     log = print if cfg.verbose else (lambda *a, **k: None)
@@ -631,6 +640,7 @@ def train(
     log(f"ADMM done ({converged_by}) after {it} iterations in {total_time:.2f}s "
         f"({total_time / max(it - start_iter, 1):.3f}s/iter)")
 
+    cond_time = None
     if cond_pending:
         # host cond mode: one batched float64 pass over every recorded
         # iteration, then backfill the history rows (reporting-only values;
@@ -641,8 +651,9 @@ def train(
                                            device=device)
         for (hist_idx, _), crow in zip(cond_pending, conds_all):
             nll_history[hist_idx]["condition_numbers"] = crow.tolist()
+        cond_time = time.time() - t_cond
         log(f"condition numbers (exact f64, on {device.type}) for {len(cond_pending)} "
-            f"iterations in {time.time() - t_cond:.2f}s")
+            f"iterations in {cond_time:.2f}s")
 
     return TrainResult(
         z=np.asarray(z),
@@ -659,4 +670,5 @@ def train(
         error_best=error_best,
         total_time=total_time,
         chain_stats=chunks.stats if flags else None,
+        cond_backfill_time=cond_time,
     )

@@ -5,3 +5,4 @@ from .cv import (  # noqa: F401
     kfold_pad_indices,
 )
 from .metrics import evaluate_predictions, nlpd  # noqa: F401
+from .noise import NoiseFitResult, fit_noise_std  # noqa: F401

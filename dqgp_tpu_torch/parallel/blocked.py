@@ -258,16 +258,6 @@ def gp_posterior_large(
     return torch.cat(means), torch.cat(vars_), res
 
 
-def _resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device where there is none raises
-    rather than leaving the work to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the CG predictor runs on the card by "
-                           "default; pass device='cpu' to run it on the CPU")
-    return dev
-
-
 def make_cg_predictor(
     spec: QuantumKernelSpec,
     X_train,
@@ -300,7 +290,7 @@ def make_cg_predictor(
     Non-converged solves warn: the alpha solve at set-up, the variance
     solves once per predict() call. ``predict.alpha_result`` holds the alpha
     solve's CGResult, ``predict.variance_results`` the last call's."""
-    dev = _resolve_device(device)
+    dev = config.resolve_device(device)
     _check_no_regularization(spec)
     dtype = config.GP_DTYPE
     if spec.kernel_type == "fidelity":

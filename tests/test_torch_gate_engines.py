@@ -84,14 +84,18 @@ def _jax_seams():
     return angles, features, grams
 
 
-def run_with_seam(seam: str, iters: int, monkeypatch):
-    """The port's north-star ``train`` on the CPU for ``iters`` iterations
-    with ``seam``'s float32 functions from the JAX package. Returns (z
-    trajectory, CV-NLPD, the seams' call counts)."""
+def install_seam(seam: str, monkeypatch) -> dict:
+    """Route the port's float32 functions behind ``seam`` to the JAX
+    package's (for the north star's circuit and kernel); float64 calls (the
+    host condition numbers, the noise fit) stay the port's. Returns the
+    seams' float32 call counts, which the calls update."""
     jax_angles, jax_features, jax_grams = _jax_seams()
     calls = dict.fromkeys(("angle_matrix", "features_from_angles", "gram_and_shift_grads"), 0)
+    port_angle_matrix, port_features = TQ.angle_matrix, TQ.features_from_angles
 
     def angle_matrix(circuit, X, theta, dtype=torch.float32):
+        if dtype == torch.float64:
+            return port_angle_matrix(circuit, X, theta, dtype)
         assert dtype == torch.float32
         calls["angle_matrix"] += 1
         Xn, Tn = X.detach().numpy(), theta.detach().numpy()
@@ -102,6 +106,8 @@ def run_with_seam(seam: str, iters: int, monkeypatch):
         return torch.from_numpy(out.reshape(lead + out.shape[-2:]))
 
     def features_from_angles(spec, angles):
+        if angles.dtype == torch.float64:
+            return port_features(spec, angles)
         calls["features_from_angles"] += 1
         return torch.from_numpy(np.array(jax_features(angles.detach().numpy())))
 
@@ -115,6 +121,14 @@ def run_with_seam(seam: str, iters: int, monkeypatch):
     monkeypatch.setattr(TQ, "features_from_angles", features_from_angles)
     if seam == "grams":
         monkeypatch.setattr(TC, "gram_and_shift_grads", gram_and_shift_grads)
+    return calls
+
+
+def run_with_seam(seam: str, iters: int, monkeypatch):
+    """The port's north-star ``train`` on the CPU for ``iters`` iterations
+    with ``seam``'s float32 functions from the JAX package. Returns (z
+    trajectory, CV-NLPD, the seams' call counts)."""
+    calls = install_seam(seam, monkeypatch)
     X, Y, _, _ = cs.make_problem()
     spec = QuantumKernelSpec(
         circuit=build_circuit("chebyshev", cs.NUM_QUBITS, cs.NUM_FEATURES, cs.NUM_LAYERS),
