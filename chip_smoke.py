@@ -212,6 +212,32 @@ Phases, one line each; any failure raises and exits non-zero:
              split, train, backfill, noise fit, predicts), launches and
              deviations.
 
+18. scale-out — the rest of the one-device scale-out
+             (``parallel/blocked.py``: the low-rank eigenvalue clip over a
+             matrix-free LOBPCG, the Gram-free blocked Cholesky,
+             ``nll_large``), on 11b's z: (a) the clip against the dense eigh
+             clip (``regularize_gram``) on indefinite matrices (n = 64 and
+             4,096) for both methods, rtol 1e-6 / atol 1e-8, lambda_min rtol
+             1e-5, ``saturated`` both ways; on config #7's float64 Gram of
+             4,096 rows; (b) runs C and D, ``--regularization thresholding``
+             and ``tikhonov`` on the CLI's CG route with config #7's flags
+             cut to 1,999 train rows, 8 agents, 2 iterations
+             (SCALE_OUT_RUNS), against the JAX CLI's runs
+             (tests/fixtures/torch_port_scale_out.json): K3's exact launches,
+             no plain engine, the dataset, z and CV-NLPD over
+             SCALE_OUT_HELD_ITERS, at JAX's z the test and train NLPD
+             (max(0.05, twice JAX's own spread over float64 features and
+             over the dense posterior)) and the CG route against the dense
+             regularized posterior
+             (mean rtol 1e-3, variance rtol 1e-2, atol 1e-5); (c) the
+             float64 Gram-free factor of all 49,999 training rows (seconds,
+             peak memory, logdet) and ``nll_large`` on 36,864 rows against
+             a dense float64 factor (rtol 1e-8), and in float32; (d) the
+             posterior of all 5,556 test rows from that factor, against
+             11b's CG posterior on the first 512 (the CG bars), its metrics
+             and seconds beside 11b's CG; (e)
+             ``dqgp_tpu_torch.examples.scale_out_50k.run(20000)``.
+
 The last two lines are a JSON record of the kernels (K1, K1_f64, K2,
 K2_f64, K3, K4 and the adjoint, each with its bound: the larger of its bytes
 over the card's memory rate and its operations over the rate of their type)
@@ -245,6 +271,12 @@ condition numbers.
     python3 chip_smoke.py --cli
 
 runs phases 1, 2 and 17 only (no result lines): the port's CLI.
+
+    python3 chip_smoke.py --scale-out
+
+runs phases 1, 2 and 18 only (no result lines), after training phase 11b's
+problem for its z and CG posterior, and adds the full-size parts: the
+example at its default N = 50,000 and the clip on all 49,999 training rows.
 """
 
 import functools
@@ -392,6 +424,44 @@ CLI_Y_TOL = {"A": 1e-12,  # the Y scaling's summation order
 # JAX's own z; every deviation of its own run is printed.
 CLI_HELD_ITERS = 1
 GT_METRIC_RTOL = 1e-5   # run B's prediction metrics but the NLPD (float32 features)
+
+# phase 18: the rest of the one-device scale-out. Runs C and D are config #7's
+# CLI flags (results_round5/cli_config7_50k.log: classical 2-D data, chebyshev
+# 10 qubits / 2 layers, projected Matérn, regional partition, streamed
+# gradients, CV on a 512-row subsample; compute_cond off, as
+# examples/scale_out_training.py:89,96 runs it) with --regularization on the
+# CG route, cut to 2,222 samples (1,999 train rows), 8 agents and 2
+# iterations, and --predict-cg-threshold 1024 so that the CLI takes the CG
+# route. SCALE_OUT_CPU_RUNS are the same flags at the north star's circuit,
+# 4 agents and 270 train rows, the size the CPU tests run. Both are held to
+# tests/fixtures/torch_port_scale_out.json (scripts/record_torch_port_scale_out.py).
+SCALE_OUT_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_scale_out.json")
+_SCALE_OUT_COMMON = ["--classical-dataset", "--input-dim", "2", "--data-seed", "42",
+                     "--encoding", "chebyshev", "--kernel-type", "projected",
+                     "--outer-kernel", "matern", "--partition", "regional",
+                     "--grad-method", "streamed", "--cv-max-samples", "512", "--max-iter", "2",
+                     "--no-cond", "--no-plot"]
+SCALE_OUT_RUNS = {
+    name: _SCALE_OUT_COMMON + ["--n-dataset", "2000", "--num-qubits", "10", "--num-layers", "2",
+                               "--n-agents", "8", "--predict-cg-threshold", "1024",
+                               "--regularization", method]
+    for name, method in (("C", "thresholding"), ("D", "tikhonov"))}
+SCALE_OUT_CPU_RUNS = {
+    name: _SCALE_OUT_COMMON + ["--n-dataset", "270", "--num-qubits", "4", "--num-layers", "3",
+                               "--n-agents", "4", "--predict-cg-threshold", "128",
+                               "--regularization", method]
+    for name, method in (("C", "thresholding"), ("D", "tikhonov"))}
+SCALE_OUT_HELD_ITERS = 1   # z and CV-NLPD: the float32 Gram may fork iteration 2
+SCALE_OUT_Y_TOL = 1e-12
+CG_MEAN_RTOL, CG_VAR_RTOL, CG_ATOL = 1e-3, 1e-2, 1e-5   # §2's CG-vs-dense bars
+CLIP_RTOL, CLIP_ATOL = 1e-6, 1e-8       # the clip vs eigh (tests/test_blocked.py:224-233)
+CLIP_LAMBDA_RTOL = 1e-5
+CLIP_N = (64, 4096)                     # 18a's indefinite matrices
+CLIP_NEGATIVES = {64: (-0.8, -0.05), 4096: (-0.8, -0.05, -1e-3)}
+CLIP_GRAM_ROWS = 4096                   # 18a's slice of config #7's Gram
+NLL_LARGE_ROWS = 36 * 1024              # the example's nll_large rows
+NLL_LARGE_RTOL = 1e-8                   # float64 blocked vs dense factor at 36,864 rows
+EXAMPLE_N, EXAMPLE_FULL_N = 20000, 50000
 
 
 def array_digest(a) -> str:
@@ -1204,10 +1274,11 @@ def time_states(rand_angles, smi: str) -> dict:
 
 
 def config7_phases(dev, smi: str, rand_angles):
-    """Phases 10-12 and 15c: K3 against its plain version, the config #7
+    """Phases 10-12, 15c and 16: K3 against its plain version, the config #7
     path (fixture problem, then full size) and its times, then config #7
-    with grad_method="autodiff". Returns (K3's entry of the kernels record,
-    the autodiff record)."""
+    with grad_method="autodiff" and with its condition numbers. Returns
+    (K3's entry of the kernels record, the autodiff record, the condition
+    numbers' record, 11b's problem, z and CG posterior for phase 18)."""
     import torch
 
     from dqgp_tpu_torch import manifold as M
@@ -1303,6 +1374,11 @@ def config7_phases(dev, smi: str, rand_angles):
     torch.cuda.synchronize()
     setup_ms, predict_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     counts = K.launch_counts()
+    # 11b's problem, z and CG posterior, for phase 18
+    c7 = {"X_tr": X_tr, "Y_tr": Y_tr, "X_te": X_te, "Y_te": Y_te,
+          "z": torch.as_tensor(res.z, device=dev), "mean": mean, "var": var,
+          "setup_ms": setup_ms, "predict_ms": predict_ms,
+          "alpha_iterations": predict.alpha_result.iterations}
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     # per step: the Gram at wrap(z) + one +-h launch per parameter; per CV
     # pass: one; per predictor: the training rows, then the eval rows
@@ -1410,7 +1486,7 @@ def config7_phases(dev, smi: str, rand_angles):
     ad = config7_autodiff_phase(dev, smi, (X_tr, Y_tr, splits), step_ms)
     cond = config7_cond_phase(dev, smi, (X_tr, Y_tr, splits), rand_angles)
     return ({"launches": counts["K3"], "max_abs_err": worst, **k3, "library_ms": None,
-             "max_abs_err_vs_unfused": worst_unfused, "step_ms": step_ms}, ad, cond)
+             "max_abs_err_vs_unfused": worst_unfused, "step_ms": step_ms}, ad, cond, c7)
 
 
 def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
@@ -2545,6 +2621,503 @@ def cli_phase(dev, smi: str) -> dict:
     return {name: report[name]["launches"] for name in CLI_RUNS}
 
 
+# --------------------------------------------------------------------------
+# phase 18: the rest of the one-device scale-out
+# --------------------------------------------------------------------------
+
+
+def indefinite_matrix(n: int, negatives=(-0.8, -0.05), seed: int = 0) -> np.ndarray:
+    """tests/test_blocked.py:212-217: a symmetric matrix with spectrum
+    linspace(0.5, 3.0) whose first eigenvalues are ``negatives``."""
+    rng = np.random.RandomState(seed)
+    Q, _ = np.linalg.qr(rng.randn(n, n))
+    w = np.linspace(0.5, 3.0, n)
+    w[:len(negatives)] = negatives
+    A = (Q * w) @ Q.T
+    return (A + A.T) / 2
+
+
+def scale_out_spec(flags):
+    """The kernel spec a run of SCALE_OUT_RUNS or SCALE_OUT_CPU_RUNS builds."""
+    from dqgp_tpu_torch.models.circuits import build_circuit
+    from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
+
+    def flag(name):
+        return flags[flags.index(name) + 1]
+
+    return QuantumKernelSpec(
+        circuit=build_circuit("chebyshev", int(flag("--num-qubits")), 2, int(flag("--num-layers"))),
+        kernel_type="projected", outer_kernel="matern", regularization=flag("--regularization"))
+
+
+def scale_out_launches_expected(summary, num_parameters: int) -> int:
+    """K3's launches in a run of SCALE_OUT_RUNS: each streamed step (the Gram
+    at wrap(z) and one +-h batch a parameter) and CV pass (and a float64 CV
+    re-score where one was flagged), then the CG predictor's training rows
+    and one a predict (test rows, the train subsample)."""
+    iters = summary["iterations"]
+    rescores = sum(h["solver"] == "float64-rescue" for h in summary["cv_history"])
+    return iters * (1 + num_parameters) + iters + rescores + 3
+
+
+def hold_scale_out_run(name: str, summary, split, ref) -> dict:
+    """Run ``name`` of the port's CLI against the JAX CLI's (``ref``): the
+    dataset after the split (X exact, Y within SCALE_OUT_Y_TOL), the
+    summary's keys and stop, z and CV-NLPD over SCALE_OUT_HELD_ITERS (all
+    deviations returned), the run's own test and train NLPD (returned, not
+    held: they follow the run's own z)."""
+    want, ds = ref["summary"], ref["dataset"]
+    X_tr, X_te, Y_tr, Y_te = split
+    check(array_digest(X_tr) == ds["x_train_sha256"]
+          and array_digest(X_te) == ds["x_test_sha256"],
+          f"run {name}: X after the split differs from JAX's")
+    y_dev = float(max(np.abs(Y_tr - np.array(ds["Y_train"])).max(),
+                      np.abs(Y_te - np.array(ds["Y_test"])).max()))
+    check(y_dev <= SCALE_OUT_Y_TOL, f"run {name}: Y deviates {y_dev} > {SCALE_OUT_Y_TOL}")
+    check(set(summary) == set(want), f"run {name}: summary keys "
+                                     f"{sorted(set(summary) ^ set(want))} differ from JAX's")
+    check(summary["iterations"] == want["iterations"]
+          and summary["converged_by"] == want["converged_by"],
+          f"run {name}: stopped {summary['converged_by']}@{summary['iterations']}, JAX "
+          f"{want['converged_by']}@{want['iterations']}")
+    z = [h["consensus_params"] for h in summary["cv_history"]]
+    cv = [h["consensus_cv_score"] for h in summary["cv_history"]]
+    z_dev, cv_dev, held, first = gate_deviations(z, cv, ref)
+    check(held >= SCALE_OUT_HELD_ITERS, f"run {name} leaves its bars at {first}, inside the "
+                                        f"held prefix of {SCALE_OUT_HELD_ITERS} iterations")
+    return {"Y": y_dev, "z": z_dev.tolist(), "cv_nlpd": cv_dev.tolist(),
+            "held_iterations": held, "first_departure": first,
+            **{f"own_{part}_nlpd": summary[f"{part}_metrics"]["nlpd"]
+               - want[f"{part}_metrics"]["nlpd"] for part in ("test", "train")}}
+
+
+def scale_out_nlpd_bar(ref, part: str) -> float:
+    """The bar of run ``ref``'s ``part`` ("test" or "train") NLPD at JAX's z:
+    max(NLPD_TOL, twice JAX's own spread of it), over float64 features (PERF.md
+    §2's config #7 bar) and over the dense posterior (the CG route's own
+    tolerance: config #7's variances are small differences that the CG's
+    tolerance moves)."""
+    at = ref["nlpd_at_z"]
+    own = at[f"{part}_nlpd_f32"]
+    return max(NLPD_TOL, 2 * abs(own - at[f"{part}_nlpd_f64_features"]),
+               2 * abs(own - at[f"{part}_nlpd_dense"]))
+
+
+def scale_out_at_reference_z(flags, split, ref, device) -> dict:
+    """Run ``ref``'s CG route at JAX's own selected z (the fixture's
+    ``best_cv_z``) on the CLI's split, as the CLI predicts: the clip's
+    lambda_min beside JAX's; the test and train-subsample NLPD within
+    ``scale_out_nlpd_bar`` of JAX's; the CG mean and variance on the test
+    rows against the dense float64 posterior, whose square Gram goes
+    through regularize_gram (CG_MEAN_RTOL / CG_VAR_RTOL, CG_ATOL), and that
+    posterior's NLPD beside JAX's dense one."""
+    import torch
+    from unittest import mock
+
+    from dqgp_tpu_torch.models.gp import evaluate_predictions, predict_quantum_gp
+    from dqgp_tpu_torch.parallel import blocked as BL
+
+    want = ref["summary"]
+    X_tr, X_te, Y_tr, Y_te = split
+    spec = scale_out_spec(flags)
+    noise = want["config"]["noise_std"]
+    z = torch.as_tensor(np.asarray(want["best_cv_z"], np.float64), device=device)
+    X_t, Y_t = torch.as_tensor(X_tr, device=device), torch.as_tensor(Y_tr, device=device)
+    clips = []
+    real = BL.make_lowrank_regularizer
+
+    def capture(*args, **kwargs):
+        clips.append(real(*args, **kwargs))
+        return clips[-1]
+
+    t0 = time.perf_counter()
+    with mock.patch.object(BL, "make_lowrank_regularizer", capture):
+        predict = BL.make_cg_predictor(spec, X_t, Y_t, z, noise, device=device)
+    setup_s = time.perf_counter() - t0
+    check(len(clips) == 1, f"the CG predictor built {len(clips)} clips, want 1")
+    reg, jclip = clips[0], ref["clip"][0]
+    threshold = int(flags[flags.index("--predict-cg-threshold") + 1])
+    sub_n = min(len(X_tr), max(threshold, 1024))
+    sel = np.random.RandomState(want["config"]["seed"]).choice(len(X_tr), sub_n, replace=False)
+    out = {"setup_s": setup_s, "lambda_min": float(reg.lambda_min),
+           "jax_lambda_min": jclip["lambda_min"],
+           "nonzero_w": int(torch.count_nonzero(reg.w)), "jax_nonzero_w": jclip["nonzero_w"],
+           "shift": float(reg.shift), "saturated": bool(reg.saturated),
+           "alpha_iterations": predict.alpha_result.iterations}
+    mean = None
+    for part, X, Y in (("test", X_te, Y_te), ("train", X_tr[sel], Y_tr[sel])):
+        m, v = predict(X)
+        got = evaluate_predictions(Y, m, v)["nlpd"]
+        bar = scale_out_nlpd_bar(ref, part)
+        out[f"{part}_nlpd"], out[f"{part}_nlpd_bar"] = got - want[f"{part}_metrics"]["nlpd"], bar
+        check(abs(out[f"{part}_nlpd"]) <= bar,
+              f"at JAX's z: {part} NLPD {got} vs JAX's {want[f'{part}_metrics']['nlpd']} "
+              f"beyond {bar}")
+        if mean is None:
+            mean, var = m, v
+    m_d, v_d = predict_quantum_gp(spec, X_t, Y_t, torch.as_tensor(X_te, device=device), z,
+                                  noise_std=noise)
+    out["dense_test_nlpd"] = (evaluate_predictions(Y_te, m_d, v_d)["nlpd"]
+                              - ref["nlpd_at_z"]["test_nlpd_dense"])
+    out["cg_mean_over_bar"] = _allclose(mean.cpu(), m_d.cpu(), CG_MEAN_RTOL, CG_ATOL)
+    out["cg_var_over_bar"] = _allclose(var.cpu(), v_d.cpu(), CG_VAR_RTOL, CG_ATOL)
+    check(out["cg_mean_over_bar"] <= 1.0 and out["cg_var_over_bar"] <= 1.0,
+          f"at JAX's z the CG route with the clip disagrees with the dense regularized "
+          f"posterior: {out}")
+    return out
+
+
+def clip_phase(dev, c7) -> dict:
+    """18a: the clip on indefinite matrices (n = 64 and 4,096) against the
+    dense eigh clip for both methods, ``saturated`` both ways; then on
+    config #7's float64 Gram of the first CLIP_GRAM_ROWS training rows at
+    11b's z against the dense eigh clip of the same Gram."""
+    import dataclasses
+
+    import torch
+
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import (
+        gram_from_features, kernel_features, regularize_gram)
+    from dqgp_tpu_torch.parallel import blocked as BL
+
+    t0 = time.time()
+    report = {}
+    for n in CLIP_N:
+        negatives = CLIP_NEGATIVES[n]
+        A = torch.as_tensor(indefinite_matrix(n, negatives), device=dev)
+        v = torch.randn((n, 3), dtype=torch.float64, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(n))
+        for method in ("thresholding", "tikhonov"):
+            t1 = time.perf_counter()
+            reg = BL.make_lowrank_regularizer_from_matvec(lambda x: A @ x, n, method, rank=8,
+                                                          dtype=torch.float64, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t1
+            dense = regularize_gram(A, method)
+            mv = _allclose(reg.matvec(A @ v, v).cpu(), (dense @ v).cpu(), CLIP_RTOL, CLIP_ATOL)
+            dg = _allclose((torch.diagonal(A) + reg.diag_correction()).cpu(),
+                           torch.diagonal(dense).cpu(), CLIP_RTOL, CLIP_ATOL)
+            lam_dev = abs(float(reg.lambda_min) / negatives[0] - 1)
+            report[f"{method}_{n}"] = {"matvec_over_bar": mv, "diag_over_bar": dg,
+                                       "lambda_min": float(reg.lambda_min),
+                                       "lambda_min_rel_dev": lam_dev, "s": secs}
+            check(mv <= 1.0 and dg <= 1.0 and lam_dev <= CLIP_LAMBDA_RTOL
+                  and not bool(reg.saturated),
+                  f"18a clip {method} at n = {n} vs eigh: {report[f'{method}_{n}']}")
+        short = BL.make_lowrank_regularizer_from_matvec(lambda x: A @ x, n, "thresholding",
+                                                        rank=1, dtype=torch.float64, device=dev)
+        check(bool(short.saturated), f"18a: rank 1 < {len(negatives)} negatives at n = {n} "
+                                     f"is not saturated")
+    # config #7's float64 Gram, first CLIP_GRAM_ROWS rows, at 11b's z
+    spec = dataclasses.replace(config7_spec(), regularization="thresholding")
+    X = torch.as_tensor(c7["X_tr"][:CLIP_GRAM_ROWS], device=dev).to(torch.float32)
+    F = kernel_features(spec, X, c7["z"]).to(torch.float64)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    reg = BL.make_lowrank_regularizer(spec, F, block=4096, dtype=torch.float64)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    K = gram_from_features(dataclasses.replace(spec, regularization=None), F)
+    eig = torch.linalg.eigvalsh(K)
+    dense = regularize_gram(K, "thresholding")
+    v = torch.randn((CLIP_GRAM_ROWS, 3), dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    mv = _allclose(reg.matvec(K @ v, v).cpu(), (dense @ v).cpu(), CLIP_RTOL, CLIP_ATOL)
+    report["config7_gram"] = {"rows": CLIP_GRAM_ROWS, "s": secs, "lambda_min": float(reg.lambda_min),
+                              "eigvalsh_min": float(eig[0]), "eigvalsh_max": float(eig[-1]),
+                              "nonzero_w": int(torch.count_nonzero(reg.w)),
+                              "saturated": bool(reg.saturated), "matvec_over_bar": mv}
+    check(mv <= 1.0, f"18a clip on config #7's Gram vs eigh: {report['config7_gram']}")
+    del K, dense, F
+    print(f"phase 18a clip ({time.time() - t0:.2f} s): " + "; ".join(
+        f"{k}: " + ", ".join(f"{kk} {vv:.3g}" if isinstance(vv, float) else f"{kk} {vv}"
+                             for kk, vv in r.items()) for k, r in report.items()), flush=True)
+    return report
+
+
+def scale_out_cli_phase(dev) -> dict:
+    """18b: runs C and D through the port's CLI on the card against the
+    fixture, and their CG route at JAX's z."""
+    import contextlib
+    from unittest import mock
+
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    with open(SCALE_OUT_FIXTURE) as f:
+        fixture = json.load(f)
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_out_") as out_dir:
+        for name, flags in SCALE_OUT_RUNS.items():
+            ref = fixture["runs"][name]
+            check(ref["flags"] == flags, f"run {name}'s flags differ from the fixture's")
+            K.reset_launch_counts()
+            with contextlib.ExitStack() as patches:
+                plain = {n: patches.enter_context(mock.patch.object(K, n, wraps=getattr(K, n)))
+                         for n in PLAIN_ENGINES}
+                summary, stages, split, wall = run_port_cli(
+                    flags + ["--device", str(dev)], os.path.join(out_dir, f"run_{name}.log"))
+            counts = {k: v for k, v in K.launch_counts().items() if v}
+            want = {"K3": scale_out_launches_expected(summary, scale_out_spec(flags).num_parameters)}
+            check(counts == want, f"run {name}: launches {counts}, want {want} and no other kernel")
+            plain = {n: m.call_count for n, m in plain.items() if m.call_count}
+            check(not plain, f"run {name} reached a plain engine on the card: {plain}")
+            with open(os.path.join(out_dir, f"run_{name}.log")) as f:
+                check("low-rank eigenvalue clip" in f.read(),
+                      f"run {name} did not log the clip on the CG route")
+            dev_ = hold_scale_out_run(name, summary, split, ref)
+            t0 = time.time()
+            at_z = scale_out_at_reference_z(flags, split, ref, dev)
+            report[name] = {"stages_s": stages, "wall_s": wall, "launches": counts,
+                            "deviations": dev_, "at_jax_z": at_z,
+                            "at_jax_z_s": time.time() - t0,
+                            "test_nlpd": summary["test_metrics"]["nlpd"],
+                            "jax_test_nlpd": ref["summary"]["test_metrics"]["nlpd"],
+                            "jax_cpu_s": ref["seconds_cpu"]}
+    return report
+
+
+def config7_cg_reference(dev) -> dict:
+    """Phase 11b's problem, 2 iterations and its CG posterior on the first
+    C7_TEST_ROWS test rows (for ``--scale-out``, which runs without 11b)."""
+    import torch
+
+    from dqgp_tpu_torch.driver import train
+    from dqgp_tpu_torch.parallel import blocked as BL
+
+    spec = config7_spec()
+    X_tr, Y_tr, X_te, Y_te, splits = config7_problem(C7_SAMPLES, C7_AGENTS)
+    cfg = config7_train_config(C7_ITERS, verbose=False)
+    res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
+    z = torch.as_tensor(res.z, device=dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    predict = BL.make_cg_predictor(spec, X_tr, Y_tr, z, cfg.noise_std, device=dev)
+    ev[1].record()
+    mean, var = predict(X_te[:C7_TEST_ROWS])
+    ev[2].record()
+    torch.cuda.synchronize()
+    return {"X_tr": X_tr, "Y_tr": Y_tr, "X_te": X_te, "Y_te": Y_te, "z": z, "mean": mean,
+            "var": var, "setup_ms": ev[0].elapsed_time(ev[1]),
+            "predict_ms": ev[1].elapsed_time(ev[2]),
+            "alpha_iterations": predict.alpha_result.iterations}
+
+
+def factor_phase(dev, c7) -> dict:
+    """18c and 18d on K3's features at 11b's z: the Gram-free float64
+    factor of all training rows, the posterior of all test rows from it
+    against 11b's CG; then ``nll_large`` on NLL_LARGE_ROWS rows in float64
+    against a dense float64 factor, and in float32."""
+    import torch
+
+    from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import (
+        gram_from_features, kernel_features)
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.parallel import blocked as BL
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    spec, noise = config7_spec(), 0.1
+    X_tr, Y_tr, X_te, Y_te, z = (c7[k] for k in ("X_tr", "Y_tr", "X_te", "Y_te", "z"))
+    n, m = len(X_tr), len(X_te)
+    K.reset_launch_counts()
+    F32 = kernel_features(spec, torch.as_tensor(X_tr, device=dev).to(torch.float32), z)
+    F_te = kernel_features(spec, torch.as_tensor(X_te, device=dev).to(torch.float32),
+                           z).to(torch.float64)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    check(counts == {"K3": 2}, f"18c launches {counts}: want K3 = 2 (train and test rows)")
+    F64 = F32.to(torch.float64)
+    y = torch.as_tensor(Y_tr, device=dev)
+    report = {"launches": counts}
+
+    # 18c: the factor of all training rows
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (L, logdet), factor_s = timed(lambda: BL.gram_free_blocked_cholesky(
+        spec, F64, noise, block=1024, dtype=torch.float64))
+    peak = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(logdet)), f"18c factor: logdet {float(logdet)}")
+    report["factor"] = {"rows": n, "n_pad": L.shape[0], "s": factor_s, "logdet": float(logdet),
+                        "peak_gb": peak / 1e9, "factor_gb": L.numel() * 8 / 1e9,
+                        "flops": n ** 3 / 3}
+
+    # 18d: the posterior from the factor
+    def solves():
+        y_pad = torch.zeros((L.shape[0], 1), dtype=torch.float64, device=dev)
+        y_pad[:n, 0] = y
+        w = torch.linalg.solve_triangular(L, y_pad, upper=False)
+        return torch.linalg.solve_triangular(L.T, w, upper=True)[:n, 0]
+
+    alpha, solve_s = timed(solves)
+
+    def predictions():
+        means, vars_ = [], []
+        for s in range(0, m, 1024):
+            Kts = gram_from_features(spec, F64, F_te[s:s + 1024])          # (n, chunk)
+            means.append(Kts.T @ alpha)
+            Kp = torch.zeros((L.shape[0], Kts.shape[1]), dtype=torch.float64, device=dev)
+            Kp[:n] = Kts
+            V = torch.linalg.solve_triangular(L, Kp, upper=False)
+            kdiag = BL._k_diag(spec, F_te[s:s + 1024], torch.float64)
+            vars_.append(torch.clamp(kdiag - torch.sum(V * V, dim=0), min=1e-10))
+            del Kts, Kp, V
+        return torch.cat(means), torch.cat(vars_)
+
+    (mean, var), predict_s = timed(predictions)
+    del L
+    torch.cuda.empty_cache()
+    check(mean.shape == (m,) and bool(torch.isfinite(mean).all())
+          and bool(torch.isfinite(var).all()), "18d: non-finite posterior from the factor")
+    mr = _allclose(mean[:C7_TEST_ROWS].cpu(), c7["mean"].cpu(), CG_MEAN_RTOL, CG_ATOL)
+    vr = _allclose(var[:C7_TEST_ROWS].cpu(), c7["var"].cpu(), CG_VAR_RTOL, CG_ATOL)
+    metrics = evaluate_predictions(Y_te, mean, var)
+    report["posterior"] = {
+        "test_rows": m, "solves_s": solve_s, "predict_s": predict_s,
+        "factor_route_s": factor_s + solve_s + predict_s,
+        "cg_setup_s": c7["setup_ms"] / 1e3, "cg_predict_512_s": c7["predict_ms"] / 1e3,
+        "cg_alpha_iterations": c7["alpha_iterations"],
+        "mean_over_bar_vs_cg": mr, "var_over_bar_vs_cg": vr,
+        **{k: metrics[k] for k in ("nlpd", "r2", "rmse", "coverage_1sigma", "coverage_2sigma")
+           if k in metrics}}
+    check(mr <= 1.0 and vr <= 1.0, f"18d: the factor's posterior vs 11b's CG: mean "
+                                   f"{mr}, variance {vr} of the bars")
+
+    # 18c: nll_large on NLL_LARGE_ROWS rows, float64 and float32, vs a dense factor
+    rows = NLL_LARGE_ROWS
+    torch.cuda.reset_peak_memory_stats()
+    (nll, comps), nll_s = timed(lambda: BL.nll_large(spec, F64[:rows], y[:rows], noise,
+                                                     block=1024, dtype=torch.float64))
+    nll_peak = torch.cuda.max_memory_allocated() - base
+
+    def dense_nll():
+        C = torch.empty((rows, rows), dtype=torch.float64, device=dev)
+        for s in range(0, rows, 4096):
+            C[s:s + 4096] = gram_from_features(spec, F64[s:min(s + 4096, rows)], F64[:rows])
+        C.diagonal().add_(noise ** 2)
+        Lc = torch.linalg.cholesky(C)
+        del C
+        alpha_d = torch.cholesky_solve(y[:rows, None], Lc)[:, 0]
+        ld = 2.0 * torch.sum(torch.log(torch.diagonal(Lc)))
+        return 0.5 * ld + 0.5 * torch.sum(y[:rows] * alpha_d) + 0.5 * rows * np.log(2 * np.pi)
+
+    ref, dense_s = timed(dense_nll)
+    torch.cuda.empty_cache()
+    rel = abs(float(nll) / float(ref) - 1)
+    (nll32, _), nll32_s = timed(lambda: BL.nll_large(spec, F32[:rows], y[:rows].float(), noise,
+                                                     block=1024))
+    rel32 = abs(float(nll32) / float(nll) - 1)
+    report["nll_large"] = {"rows": rows, "nll": float(nll), "dense_nll": float(ref),
+                           "rel_dev": rel, "rtol": NLL_LARGE_RTOL, "s": nll_s,
+                           "dense_s": dense_s, "peak_gb": nll_peak / 1e9,
+                           "terms": {k: float(v) for k, v in comps.items()},
+                           "float32_nll": float(nll32), "float32_rel_dev": rel32,
+                           "float32_s": nll32_s}
+    check(rel <= NLL_LARGE_RTOL, f"18c nll_large {float(nll)} vs dense {float(ref)}: rel {rel}")
+    check(np.isfinite(float(nll32)), f"18c float32 nll_large {float(nll32)}")
+    return report
+
+
+def example_phase(dev, N: int) -> dict:
+    """18e: ``dqgp_tpu_torch.examples.scale_out_50k.run(N)`` on the card."""
+    import torch
+
+    from dqgp_tpu_torch.examples import scale_out_50k
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = scale_out_50k.run(N, dev, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    check(counts == {"K3": 1}, f"example N={N}: launches {counts}, want K3 = 1")
+    check(r["mean"].shape == (scale_out_50k.M,) and bool(torch.isfinite(r["mean"]).all())
+          and bool(torch.isfinite(r["var"]).all()) and np.isfinite(r["nll"]),
+          f"example N={N}: non-finite result")
+    return {"N": N, "launches": counts, "wall_s": wall,
+            **{k: r[k] for k in ("cg_iterations", "cg_residual", "cg_converged", "n_chol", "nll",
+                                 "features_s", "posterior_s", "nll_s")}}
+
+
+def full_clip(dev, c7) -> dict:
+    """``--scale-out``: ``make_lowrank_regularizer`` on all of config #7's
+    training rows at 11b's z, float64, as the CG predictor builds it."""
+    import dataclasses
+
+    import torch
+
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import kernel_features
+    from dqgp_tpu_torch.parallel import blocked as BL
+
+    spec = dataclasses.replace(config7_spec(), regularization="thresholding")
+    F = kernel_features(spec, torch.as_tensor(c7["X_tr"], device=dev).to(torch.float32),
+                        c7["z"]).to(torch.float64)
+    calls = [0]
+
+    def counted_matvec(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    real = BL.gram_matvec
+    BL.gram_matvec = counted_matvec
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg = BL.make_lowrank_regularizer(spec, F, block=4096, dtype=torch.float64)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        BL.gram_matvec = real
+    check(bool(torch.isfinite(reg.lambda_min)), "the full-size clip's lambda_min is not finite")
+    return {"rows": len(c7["X_tr"]), "s": secs, "matvecs": calls[0],
+            "lambda_min": float(reg.lambda_min), "nonzero_w": int(torch.count_nonzero(reg.w)),
+            "saturated": bool(reg.saturated)}
+
+
+def scale_out_phase(dev, smi: str, c7, full: bool = False) -> dict:
+    """Phase 18: 18a-e; with ``full``, also the example at EXAMPLE_FULL_N and
+    the clip on all 49,999 rows. Prints the ``scale_out`` line; returns it."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    report = {"device": smi}
+    t0 = time.time()
+    report["clip"] = clip_phase(dev, c7)
+    report["clip_s"] = time.time() - t0
+    t0 = time.time()
+    report["cli"] = scale_out_cli_phase(dev)
+    report["cli_s"] = time.time() - t0
+    print("phase 18b " + json.dumps(report["cli"], default=float), flush=True)
+    t0 = time.time()
+    report["factor"] = factor_phase(dev, c7)
+    report["factor_phase_s"] = time.time() - t0
+    print("phase 18c-d " + json.dumps(report["factor"], default=float), flush=True)
+    t0 = time.time()
+    report["example"] = example_phase(dev, EXAMPLE_N)
+    report["example_s"] = time.time() - t0
+    print("phase 18e " + json.dumps(report["example"], default=float), flush=True)
+    if full:
+        t0 = time.time()
+        report["example_full"] = example_phase(dev, EXAMPLE_FULL_N)
+        report["example_full_s"] = time.time() - t0
+        print("phase 18 example at full size " + json.dumps(report["example_full"],
+                                                            default=float), flush=True)
+        report["clip_full"] = full_clip(dev, c7)
+        print("phase 18 clip at full size " + json.dumps(report["clip_full"], default=float),
+              flush=True)
+    report["phase_s"] = time.time() - t_phase
+    print(f"phase 18 scale-out ({report['phase_s']:.2f} s) [{smi}]", flush=True)
+    return report
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2567,6 +3140,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cli", action="store_true",
                     help="phases 1, 2 and 17 (the README's SRTM command and config #5 "
                          "through the port's CLI) only, without the result lines")
+    ap.add_argument("--scale-out", action="store_true",
+                    help="phases 1, 2 and 18 (the clip, --regularization on the CLI's CG "
+                         "route, the Gram-free factor, nll_large, the example) with the "
+                         "example and the clip at full size, without the result lines")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2669,7 +3246,9 @@ def main(argv=None) -> int:
         config7_cond_phase(dev, smi, (X_tr, Y_tr, c7_splits), rand_angles)
     if args.cli:
         cli_phase(dev, smi)
-    if args.k1 or args.k3 or args.states or args.vjp or args.cond or args.cli:
+    if args.scale_out:
+        scale_out_phase(dev, smi, config7_cg_reference(dev), full=True)
+    if args.k1 or args.k3 or args.states or args.vjp or args.cond or args.cli or args.scale_out:
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
@@ -2889,10 +3468,14 @@ def main(argv=None) -> int:
     chained = chained_phase(dev, smi, fid)
     adjoint = autodiff_phase(dev, smi, rand_angles)
 
-    k3, adjoint7, cond7 = config7_phases(dev, smi, rand_angles)
+    k3, adjoint7, cond7, c7 = config7_phases(dev, smi, rand_angles)
 
     # 17. the port's CLI: the README's SRTM command and config #5 -----------
     cli_launches = cli_phase(dev, smi)
+
+    # 18. the rest of the one-device scale-out, on 11b's z -------------------
+    scale = scale_out_phase(dev, smi, c7)
+    del c7
 
     print(json.dumps({"kernels": [
         {"name": "pauli_features (K1)", "route": "cuda",
@@ -2931,7 +3514,11 @@ def main(argv=None) -> int:
          "launches_cli_run_b": cli_launches["B"]["K2_f64"]},
         {"name": "pauli_features_fused (K3)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/pauli_features_fused.cu",
-         "replaces": "dqgp_tpu/ops/pallas_circuit.py:330", **k3},
+         "replaces": "dqgp_tpu/ops/pallas_circuit.py:330", **k3,
+         "launches_scale_out": {
+             **{f"cli_run_{n}": r["launches"]["K3"] for n, r in scale["cli"].items()},
+             "factor_features": scale["factor"]["launches"]["K3"],
+             "example": scale["example"]["launches"]["K3"]}},
         {"name": "states_fused (K4)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/states_fused.cu",
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:278",

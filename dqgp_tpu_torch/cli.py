@@ -435,15 +435,6 @@ def run(argv=None) -> Tuple[Optional[dict], Dict[str, float]]:
     for i, (Xa, _) in enumerate(splits):
         log(f"  Agent {i+1}: {Xa.shape[0]} samples")
 
-    large_n = len(X_train) > max(args.predict_cg_threshold, 1)
-    if large_n and spec.regularization is not None:
-        raise NotImplementedError(
-            f"--regularization {spec.regularization} with the CG posterior "
-            f"(n_train={len(X_train)} > --predict-cg-threshold="
-            f"{args.predict_cg_threshold}) needs the low-rank eigenvalue clip, which "
-            f"is not ported (ROADMAP Queue 1 item 8); raise --predict-cg-threshold "
-            f"for the dense posterior")
-
     if not args.no_plot:
         plotting.plot_dataset(X_full, Y_full, save_plot=True, output_dir=args.output_dir,
                               train_indices=train_idx, test_indices=test_idx)
@@ -479,6 +470,15 @@ def run(argv=None) -> Tuple[Optional[dict], Dict[str, float]]:
             post_training_report(res, log=log, ground_truth_params=ground_truth_params)
 
     # --- final prediction + evaluation (main.py:3104-3682) --------------------
+    large_n = len(X_train) > max(args.predict_cg_threshold, 1)
+    if large_n and spec.regularization is not None:
+        # the matrix-free posterior applies square-Gram regularization via
+        # the low-rank eigenvalue clip (parallel/blocked.py:
+        # make_lowrank_regularizer), exact when the negative spectrum fits
+        # the clip rank
+        log("regularization set: the CG posterior applies it via the "
+            "low-rank eigenvalue clip")
+
     _cg_predictors = {}
     # predict/eval noise: --fit-noise below may replace the CLI constant
     # with the marginal-likelihood optimum at the selected hyperparameters

@@ -3,8 +3,9 @@ package's on the CPU in float64, at tests/test_blocked.py's sizes and bars:
 the blocked Gram matvec against the dense product, CG on an SPD system,
 the pivoted-Cholesky factor and the Woodbury preconditioner, the posterior
 (mean rtol 1e-4 / atol 1e-6, variance rtol 1e-3 / atol 1e-6, CG iteration
-counts equal) and the CG predictor against both JAX's and the port's dense
-posterior.
+counts equal) and the CG predictor, with and without square-Gram
+regularization (the low-rank eigenvalue clip), against both JAX's and the
+port's dense posterior.
 
 Where both sides start from the same float64 features, the two CG loops run
 the same arithmetic up to the order of the matvec's sums, and with a
@@ -161,13 +162,30 @@ def test_cg_predictor_warns_when_not_converged():
         predict(X[:5])
 
 
-def test_regularized_spec_raises_naming_the_lowrank_clip():
+@pytest.mark.parametrize("method,precond_rank", [("thresholding", 64), ("tikhonov", 0)])
+def test_regularized_cg_predictor_matches_jax_and_dense(method, precond_rank):
+    """tests/test_blocked.py:236-259: make_cg_predictor with
+    ``spec.regularization`` applies the low-rank eigenvalue clip to the CG's
+    matvec (and, under Jacobi, its diagonal); it matches JAX's CG route and
+    the port's dense posterior, whose square Gram goes through
+    regularize_gram."""
     jspec = JaxSpec(circuit=build_circuit("hubregtsen", 3, 2, 1), kernel_type="projected",
-                    regularization="thresholding")
-    X = np.zeros((8, 2))
-    with pytest.raises(NotImplementedError, match="low-rank eigenvalue clip"):
-        TB.make_cg_predictor(spec_from_jax(jspec), X, np.zeros(8),
-                             np.zeros(jspec.num_parameters), 0.1, device="cpu")
+                    outer_kernel="matern", regularization=method)
+    spec = spec_from_jax(jspec)
+    rng = np.random.RandomState(2)
+    Xtr = rng.uniform(-0.9, 0.9, (128, 2))
+    Ytr = np.sin(3 * Xtr[:, 0]) + 0.1 * rng.randn(128)
+    Xte = rng.uniform(-0.9, 0.9, (24, 2))
+    theta = rng.uniform(0, np.pi, spec.num_parameters)
+    kw = dict(cg_tol=1e-8, cg_maxiter=400, precond_rank=precond_rank)
+    m_c, v_c = TB.make_cg_predictor(spec, Xtr, Ytr, theta, 0.1, device="cpu", **kw)(Xte)
+    jm, jv = JB.make_cg_predictor(jspec, Xtr, Ytr, theta, 0.1, **kw)(Xte)
+    np.testing.assert_allclose(m_c.numpy(), np.asarray(jm), **MEAN)
+    np.testing.assert_allclose(v_c.numpy(), np.asarray(jv), **VAR)
+    m_d, v_d = predict_quantum_gp(spec, torch.tensor(Xtr), torch.tensor(Ytr),
+                                  torch.tensor(Xte), torch.tensor(theta), noise_std=0.1)
+    np.testing.assert_allclose(m_c.numpy(), m_d.numpy(), **MEAN)
+    np.testing.assert_allclose(v_c.numpy(), v_d.numpy(), **VAR)
 
 
 @pytest.mark.parametrize("entry", ["make_cg_predictor", "predict_quantum_gp_large"])

@@ -179,11 +179,30 @@ BASE = ["--input-dim", "1", "--n-dataset", "24", "--num-qubits", "2", "--num-lay
     (["--data-mesh-cols", "2"], NotImplementedError),
     (["--gp-dtype", "mixed"], ValueError),
     (["--cv-dtype", "mixed"], ValueError),
-    (["--regularization", "tikhonov", "--predict-cg-threshold", "8"], NotImplementedError),
 ])
 def test_unported_flags_raise(extra, error):
     with pytest.raises(error):
         T.main(BASE + extra)
+
+
+@pytest.mark.parametrize("method", ["tikhonov", "thresholding"])
+def test_regularization_on_the_cg_route_matches_jax_cli(method, capsys):
+    """--regularization with the CG posterior (21 train rows > the threshold
+    of 8): the low-rank eigenvalue clip, logged as the JAX CLI logs it, at
+    the bars of the runs above."""
+    flags = [f for f in BASE if f not in ("--device", "cpu", "--quiet")] + [
+        "--regularization", method, "--predict-cg-threshold", "8"]
+    want = J.main(flags)
+    capsys.readouterr()
+    got = T.main(flags + ["--device", "cpu"])
+    assert "CG posterior applies it via the low-rank eigenvalue clip" in capsys.readouterr().out
+    assert set(got) == set(want)
+    z, cv = _trajectory(got)
+    z_ref, cv_ref = _trajectory(want)
+    assert np.abs(z - z_ref).max() <= cs.Z_TOL
+    assert np.abs(cv - cv_ref).max() <= cs.NLPD_TOL
+    for part in ("test", "train"):
+        assert abs(got[f"{part}_metrics"]["nlpd"] - want[f"{part}_metrics"]["nlpd"]) <= cs.NLPD_TOL
 
 
 def test_plots_without_matplotlib_name_no_plot(monkeypatch):
