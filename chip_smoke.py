@@ -8,12 +8,14 @@ Phases, one line each; any failure raises and exits non-zero:
 1. device  — the card's name and power limit (nvidia-smi);
 2. build   — nvcc builds the Pauli-feature (K1), states (K2), fused
              Pauli-feature (K3) and fused states (K4) kernels and the
-             adjoint kernel (the backward of K1 and K2) for sm_90a, and the
+             adjoint kernel (the backward of K1 and K2) for sm_90a, K1's
+             (both precisions) and K3's 11- and 12-qubit instantiations, and the
              first layouts that phases 9, 13, 15a and 16 time beside their
              redesigns (the adjoint's; K1's and K2's float64), one nvcc
              each, all started together, with ptxas's register and
-             spill report; for each of the ten instantiations (1-10 qubits)
-             of K1 and K2 in float32 and float64, K3, K4 and the adjoint its
+             spill report; for each of the instantiations (1-12 qubits of K1
+             in float32 and float64 and of K3, 1-10 of K2 in both precisions,
+             K4 and the adjoint) its
              registers, stack frame and spills, which must be 0 and 0; K1's
              geometry and resident blocks an SM at the north star's circuit
              (float32 and float64), K1 float64's at config #7's, K3's at
@@ -238,6 +240,29 @@ Phases, one line each; any failure raises and exits non-zero:
              and seconds beside 11b's CG; (e)
              ``dqgp_tpu_torch.examples.scale_out_50k.run(20000)``.
 
+19. 12 qubits — K1 (float32 and float64) and K3 with a sample's state
+             across 2 and 4 warps (the 11- and 12-qubit instantiations, built
+             from csrc/pauli_features_q11_12.cu, pauli_features_f64_q11_12.cu
+             and pauli_features_fused_q11_12.cu): (a) against their plain
+             versions at 11 and 12 qubits (chebyshev and random 2-D 2
+             layers, every gate kind on the warp bits; B = 1, 131 and the
+             slice's batch: 108,032 for K3 and K1 float32, 13,504 for K1
+             float64, whose angles hold F64_SPECIAL_ANGLES), 5e-6 in float32
+             and 1e-12 in float64, and their times beside their bounds;
+             (b) config #7 at 12 qubits at full width (11b's 49,999 rows over
+             64 agents, chebyshev 12 qubits / 2 layers, P = 84) for 2
+             iterations with the CLI's condition numbers: K3's and K1
+             float64's exact launches, no plain engine, iteration 1's agent
+             NLLs of 2 agents against the plain float64 engine within config
+             #7's NLL bar, the step, CV pass and backfill timed, then one
+             iteration with fusion off (K1 float32 in K3's place); (c) the
+             fixture problem at 12 qubits (999 rows over 8 agents, 2
+             iterations, CG predict) held to tests/fixtures/torch_port_12q.json
+             as 11a holds the 10-qubit one, and run E, config #7's CLI flags at
+             12 qubits with the condition numbers and the noise fit on the CG
+             route (RUN_E_FLAGS), held to the JAX CLI's run at run C's bars,
+             the fitted sigma and the NLPDs at JAX's z.
+
 The last two lines are a JSON record of the kernels (K1, K1_f64, K2,
 K2_f64, K3, K4 and the adjoint, each with its bound: the larger of its bytes
 over the card's memory rate and its operations over the rate of their type)
@@ -277,6 +302,10 @@ runs phases 1, 2 and 17 only (no result lines): the port's CLI.
 runs phases 1, 2 and 18 only (no result lines), after training phase 11b's
 problem for its z and CG posterior, and adds the full-size parts: the
 example at its default N = 50,000 and the clip on all 49,999 training rows.
+
+    python3 chip_smoke.py --q12
+
+runs phases 1, 2 and 19 only (no result lines): 11 and 12 qubits.
 """
 
 import functools
@@ -463,6 +492,40 @@ NLL_LARGE_ROWS = 36 * 1024              # the example's nll_large rows
 NLL_LARGE_RTOL = 1e-8                   # float64 blocked vs dense factor at 36,864 rows
 EXAMPLE_N, EXAMPLE_FULL_N = 20000, 50000
 
+# phase 19: 11 and 12 qubits. K1 (float32 and float64) and K3 with a sample's
+# state across 2 and 4 warps (csrc/pauli_features_q11_12.cu,
+# pauli_features_f64_q11_12.cu, pauli_features_fused_q11_12.cu) against their
+# plain versions, then config #7 at 12 qubits (BASELINE.md:41: "10-12 qubits"):
+# chebyshev 12 qubits / 2 layers, P = 84, at full width (19b) and against the
+# JAX package (19c: tests/fixtures/torch_port_12q.json,
+# scripts/record_torch_port_12q.py).
+WIDE_QUBITS = (11, 12)
+WIDE_BATCHES = (1, 131)     # one sample; a batch that ends inside a round of groups
+WIDE_HELD_ROWS = 4096       # the rows held to the plain version at the slice's batch
+C12_QUBITS = 12
+C12_F64_ROWS = 16 * C7_NMAX  # K1 float64 in the backfill: 16 z rows of the largest agent
+Q12_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_12q.json")
+C12_FIX_SAMPLES, C12_FIX_AGENTS, C12_FIX_ITERS = 1111, 8, 2
+# the CPU tests' cut of the fixture problem: 2 agents of 23-24 rows, 1 iteration
+C12_CPU_SAMPLES, C12_CPU_AGENTS, C12_CPU_ITERS = 53, 2, 1
+# run E: config #7's CLI flags (phase 18b's) at 12 qubits with the CLI's
+# condition numbers (no --no-cond) and the noise fit, on the CG route; and
+# the same flags at the CPU tests' size: 44 samples (40 train rows), 2
+# agents, 1 iteration, the CG route from 16 train rows
+_RUN_E_COMMON = [f for f in _SCALE_OUT_COMMON if f != "--no-cond"]
+
+
+def _run_e_flags(n_dataset: int, agents: int, cg_threshold: int, iters: int):
+    flags = list(_RUN_E_COMMON)
+    flags[flags.index("--max-iter") + 1] = str(iters)
+    return flags + ["--n-dataset", str(n_dataset), "--num-qubits", str(C12_QUBITS),
+                    "--num-layers", "2", "--n-agents", str(agents),
+                    "--predict-cg-threshold", str(cg_threshold), "--fit-noise"]
+
+
+RUN_E_FLAGS = _run_e_flags(2000, 8, 1024, 2)
+RUN_E_CPU_FLAGS = _run_e_flags(40, 2, 16, 1)
+
 
 def array_digest(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a, np.float64).tobytes()).hexdigest()
@@ -613,11 +676,11 @@ def fidelity_problem(dev):
     return spec, X, Y, theta, X_tr, Y_tr, X_te, Y_te, splits
 
 
-def config7_spec():
+def config7_spec(qubits: int = C7_QUBITS):
     from dqgp_tpu_torch.models.circuits import build_circuit
     from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
 
-    return QuantumKernelSpec(circuit=build_circuit("chebyshev", C7_QUBITS, 2, C7_LAYERS),
+    return QuantumKernelSpec(circuit=build_circuit("chebyshev", qubits, 2, C7_LAYERS),
                              kernel_type="projected", outer_kernel="matern")
 
 
@@ -1077,11 +1140,14 @@ def k2_bound(circuit, B: int, real_bytes: int = 4):
 
 
 def k3_bound(circuit, B: int):
-    """K3: angles (B, G) and C in, features (B, 3n) out, float32."""
+    """K3: angles (B, G) and C in (from 11 qubits up the kernel derives C's
+    columns and reads no C), features (B, 3n) out, float32."""
+    from dqgp_tpu_torch.ops import cuda_circuit as K
     from dqgp_tpu_torch.ops.fusion import diag_patterns_concat, fuse_circuit
 
     n = circuit.num_qubits
-    c_bytes = diag_patterns_concat(fuse_circuit(circuit)).nbytes
+    c_bytes = (diag_patterns_concat(fuse_circuit(circuit)).nbytes
+               if n <= K.ONE_WARP_QUBITS else 0)
     return bound_ms(4 * B * (circuit.num_gates + 3 * n) + c_bytes,
                     B * (fused_program_ops(circuit) + feature_ops(n)))
 
@@ -1375,7 +1441,7 @@ def config7_phases(dev, smi: str, rand_angles):
     setup_ms, predict_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
     counts = K.launch_counts()
     # 11b's problem, z and CG posterior, for phase 18
-    c7 = {"X_tr": X_tr, "Y_tr": Y_tr, "X_te": X_te, "Y_te": Y_te,
+    c7 = {"X_tr": X_tr, "Y_tr": Y_tr, "X_te": X_te, "Y_te": Y_te, "splits": splits,
           "z": torch.as_tensor(res.z, device=dev), "mean": mean, "var": var,
           "setup_ms": setup_ms, "predict_ms": predict_ms,
           "alpha_iterations": predict.alpha_result.iterations}
@@ -3118,6 +3184,460 @@ def scale_out_phase(dev, smi: str, c7, full: bool = False) -> dict:
     return report
 
 
+# --------------------------------------------------------------------------
+# phase 19: 11 and 12 qubits
+# --------------------------------------------------------------------------
+
+
+def every_kind_circuit(n: int):
+    """Every gate kind on the warp bits of an n-qubit state (n = 11, 12): each
+    kind with its target on qubit 10 and on qubit n - 1 and, for the two-qubit
+    kinds, its control on a warp bit over a register or a lane target, then
+    the kinds again on seeded qubits. Its fused program has phase runs of RZ,
+    CRZ, CZ and RZZ members on warp bits, which no circuit family has."""
+    from dqgp_tpu_torch.ops.circuit import CX, Circuit, Gate
+
+    rng = np.random.RandomState(n)
+    pairs = [(10, 4), (n - 1, 8), (2, 10), (7, n - 1)] + ([(10, 11), (11, 10)] if n >= 12 else [])
+    gates = [Gate(kind=kind, qubit=q, control=c if kind >= CX else -1)
+             for kind in range(10) for q, c in pairs]
+    for kind in list(range(10)) * 3:
+        q = int(rng.randint(n))
+        c = int((q + 1 + rng.randint(n - 1)) % n) if kind >= CX else -1
+        gates.append(Gate(kind=kind, qubit=q, control=c))
+    order = rng.permutation(len(gates))
+    return Circuit(num_qubits=n, num_features=1, num_parameters=1,
+                   gates=tuple(gates[i] for i in order), name="every_kind")
+
+
+def check_wide_kernels(rand_angles, smi: str) -> dict:
+    """Phase 19a: K3, K1 float32 and K1 float64 at 11 and 12 qubits (a
+    sample's state across 2 and 4 warps) against their plain versions on the
+    same CUDA tensors: chebyshev 2-D 2 layers, the random family (CZ, RZ and
+    CRZ members) and ``every_kind_circuit``, at B = 1, 131 and the slice's
+    batch (108,032 for K3 and K1 float32, the backfill's 13,504 for K1
+    float64; the first WIDE_HELD_ROWS rows held there); the float64 angles
+    hold F64_SPECIAL_ANGLES in every third place. Then each kernel at the
+    slice's batch on chebyshev, in turns with its plain version (a call) and
+    alone (the profiler), beside its bound. Returns the kernels' records."""
+    import torch
+
+    from dqgp_tpu_torch.models.circuits import build_circuit
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    t0 = time.time()
+    special = torch.tensor(F64_SPECIAL_ANGLES, dtype=torch.float64, device="cuda")
+    kernels = {  # wrapper, plain version, bar, the slice's batch, float64
+        "K3": (K.pauli_features_from_angles_fused, K.pauli_features_fused_reference, K1_TOL,
+               C7_STEP_ROWS, False),
+        "K1": (K.pauli_features_from_angles, K.pauli_features_reference, K1_TOL,
+               C7_STEP_ROWS, False),
+        "K1_f64": (K.pauli_features_from_angles, K.pauli_features_reference, F64_TOL,
+                   C12_F64_ROWS, True)}
+
+    def angles_for(name, circuit, B):
+        f64 = kernels[name][4]
+        a = rand_angles(circuit, B, torch.float64 if f64 else torch.float32)
+        if f64:
+            flat = a.view(-1)[::3]  # every third float64 angle a special one
+            flat.copy_(special.repeat(flat.numel() // len(special) + 1)[:flat.numel()])
+        return a
+
+    err = dict.fromkeys(kernels, 0.0)
+    k3_unfused, cases = 0.0, 0
+    for n in WIDE_QUBITS:
+        circuits = (build_circuit("chebyshev", n, 2, C7_LAYERS),
+                    build_circuit("random", n, 2, C7_LAYERS), every_kind_circuit(n))
+        for c in circuits:
+            for name, (kernel, plain, tol, rows, f64) in kernels.items():
+                for B in WIDE_BATCHES + (rows,):
+                    a = angles_for(name, c, B)
+                    got = kernel(c, a)
+                    torch.cuda.synchronize()
+                    check(got.shape == (B, 3 * n) and got.dtype == a.dtype,
+                          f"{name} shape {tuple(got.shape)} {got.dtype}")
+                    held, a_held = got[:WIDE_HELD_ROWS], a[:WIDE_HELD_ROWS]
+                    e = float((held - plain(c, a_held)).abs().max())
+                    check(np.isfinite(e) and e <= tol, f"{name} vs plain {c.name} {n}q B={B}: "
+                                                       f"max abs diff {e} > {tol}")
+                    err[name] = max(err[name], e)
+                    if name == "K3":  # beside the plain unfused version, printed
+                        u = float((held - K.pauli_features_reference(c, a_held)).abs().max())
+                        k3_unfused = max(k3_unfused, u)
+                    cases += 1
+                    del a, got, held, a_held
+    print(f"phase 19a K1 and K3 at {WIDE_QUBITS} qubits vs plain ({time.time() - t0:.2f} s): "
+          f"{cases} cases (chebyshev, random, every gate kind on the warp bits; B = "
+          f"{WIDE_BATCHES} and the slice's batch, its first {WIDE_HELD_ROWS} rows held); max "
+          f"abs diff K3 {err['K3']:.3e} (tol {K1_TOL}; {k3_unfused:.3e} vs the plain unfused "
+          f"version), K1 float32 {err['K1']:.3e} (tol {K1_TOL}), K1 float64 "
+          f"{err['K1_f64']:.3e} (tol {F64_TOL}, the float64 angles hold "
+          f"{', '.join(f'{v:g}' for v in F64_SPECIAL_ANGLES)} in every third place)", flush=True)
+
+    t0 = time.time()
+    times = {}
+    for n in WIDE_QUBITS:
+        c = config7_spec(n).circuit
+        for name, (kernel, plain, _, rows, f64) in kernels.items():
+            a = angles_for(name, c, rows)
+            ms, plain_ms = _alternate_ms([lambda: kernel(c, a), lambda: plain(c, a)], 2)
+            device_ms = _device_ms(lambda: kernel(c, a), 3, WARP_KERNELS[name])
+            bound, bound_by = (k3_bound(c, rows) if name == "K3"
+                               else k1_bound(c, rows, 8 if f64 else 4))
+            times.setdefault(name, {})[n] = {
+                "B": rows, "G": c.num_gates, "ms": ms, "plain_ms": plain_ms,
+                "device_ms": device_ms, "bound_ms": bound, "bound_by": bound_by}
+            del a
+            torch.cuda.empty_cache()
+    print(f"phase 19a times ({time.time() - t0:.2f} s) [{smi}]: chebyshev 2 layers, "
+          + "; ".join(f"{name} n={n} B={t['B']} G={t['G']}: {t['ms']:.3f} ms a call, "
+                      f"{t['device_ms']:.3f} alone, plain {t['plain_ms']:.1f} ms; bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                      f"{t['bound_ms'] / t['device_ms']:.1%} of it alone"
+                      for name, by_n in times.items() for n, t in by_n.items()), flush=True)
+    out = {}
+    for name in kernels:
+        t = times[name][C12_QUBITS]
+        out[name] = {"max_abs_err": err[name], **{k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "B")},
+            "at_11_qubits": times[name][11]}
+    out["K3"]["max_abs_err_vs_unfused"] = k3_unfused
+    return out
+
+
+def agent_nll_plain_f64(spec, splits, z, dev, noise_std: float) -> np.ndarray:
+    """The agents' NLLs at z (P,) from float64 features through the plain
+    complex128 engine (K1's plain version) on ``dev``: the Gram at wrap(z),
+    then the masked float64 NLL, as the streamed step forms them."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.models.gp.posterior import masked_nll_core
+    from dqgp_tpu_torch.models.kernels import quantum_kernel as QK
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.ops.statevector import angle_matrix
+    from dqgp_tpu_torch.parallel.consensus import make_agent_batch
+
+    batch = make_agent_batch(splits, dev)
+    zw = M.wrap(torch.as_tensor(np.asarray(z), dtype=torch.float64, device=dev))
+    angles = angle_matrix(spec.circuit, batch.X, zw, torch.float64)  # (A, N, G)
+    saved = QK.pauli_features_from_angles
+    QK.pauli_features_from_angles = K.pauli_features_reference
+    try:
+        flat = QK.features_from_angles(spec, angles.reshape(-1, angles.shape[-1]))
+    finally:
+        QK.pauli_features_from_angles = saved
+    gram = QK.gram_from_features(spec, flat.reshape(*angles.shape[:-1], flat.shape[-1]))
+    res, _ = masked_nll_core(gram, batch.Y.to(torch.float64), batch.mask.to(torch.float64),
+                             noise_std, compute_cond=False)
+    return res.nll.cpu().numpy()
+
+
+def config7_wide_phase(dev, smi: str, full, ref) -> dict:
+    """Phase 19b: config #7 at 12 qubits, full width (``full``: 11b's 49,999
+    rows over 64 agents; chebyshev 12 qubits / 2 layers, P = 84), 2 streamed
+    iterations with the CLI's condition numbers (compute_cond=True, cond_mode
+    "auto" = host): K3 once at wrap(z) and once a parameter a step and once a
+    CV pass, K1 float64 once an agent and 16-row chunk in the backfill, no
+    other kernel and no plain engine; iteration 1's agent NLLs of two agents
+    whose rows lie inside the encoding's arccos domain against the same NLLs
+    from the plain float64 engine, within config #7's NLL bar at 12 qubits
+    (the fixture's first iteration: max(1e-4, 2 x JAX's own spread)). Then
+    its times: a step and a CV pass (CUDA events), the backfill of the run's
+    z rows, peak memory; and one iteration with fusion off, K1 float32 in
+    K3's place."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from dqgp_tpu_torch import config
+    from dqgp_tpu_torch.driver import host_condition_numbers, resolve_cond_mode, train
+    from dqgp_tpu_torch.models.gp.cv import cv_fold_scores_impl, kfold_pad_indices
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.parallel.consensus import make_admm_step, make_agent_batch
+
+    X_tr, Y_tr, splits = full
+    spec = config7_spec(C12_QUBITS)
+    P = spec.num_parameters
+    check((spec.circuit.num_gates, P) == (84, 84), "config #7 at 12 qubits is not G = P = 84")
+    cfg = config7_train_config(C7_ITERS, compute_cond=True, cond_mode="auto", verbose=False)
+    check(resolve_cond_mode(cfg, dev) == "host", "cond_mode auto does not resolve to host")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.ExitStack() as patches:
+        plain = {n: patches.enter_context(mock.patch.object(K, n, wraps=getattr(K, n)))
+                 for n in PLAIN_ENGINES}
+        res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
+        torch.cuda.synchronize()
+    train_s = time.time() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    plain = {n: m.call_count for n, m in plain.items() if m.call_count}
+    rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
+    want_k3 = C7_ITERS * (1 + P) + C7_ITERS + rescores
+    want_f64 = backfill_launches(C7_ITERS, C7_AGENTS)
+    check(counts["K3"] == want_k3 and counts["K1_f64"] == want_f64
+          and sum(counts.values()) == want_k3 + want_f64,
+          f"config #7 at 12 qubits launches {counts}: want K3 = {C7_ITERS}*(1+{P}) + "
+          f"{C7_ITERS} + {rescores} and K1_f64 = {want_f64} (the backfill), no other kernel")
+    check(not plain, f"config #7 at 12 qubits reached a plain engine on the card: {plain}")
+    host = np.array([h["condition_numbers"] for h in res.nll_history])
+    check(host.shape == (C7_ITERS, C7_AGENTS) and not bool(np.isnan(host).any()),
+          f"the backfill left a condition number out: {host.shape}")
+    check(np.all(np.isfinite(res.z)) and all(np.all(np.isfinite(h["agent_losses"]))
+                                             for h in res.nll_history),
+          "non-finite z or agent NLL at 12 qubits")
+    # two agents whose rows all lie inside arccos's domain [-1, 1]^2: the
+    # encoding clips x, so at the agents wholly outside it (0, 1, 6-9, ...)
+    # every row has the same features, the Gram is all ones and the NLL does
+    # not see them
+    held = [i for i, (x, _) in enumerate(splits) if np.all(np.abs(x) <= 1)][:2]
+    z1 = res.cv_history[0]["consensus_params"]
+    own = np.asarray(res.nll_history[0]["agent_losses"])[held]
+    held_splits = [splits[i] for i in held]
+    plain_nll = agent_nll_plain_f64(spec, held_splits, z1, dev, cfg.noise_std)
+    nll_rel = float((np.abs(own - plain_nll) / np.abs(plain_nll)).max())
+    # beside them, the same NLLs from K3's features outside the step
+    k3_nll = config7_agent_nll_at(spec, held_splits, [z1], dev, cfg.noise_std)[0]
+    nll_bar = float(config7_nll_bars(ref)[0])
+
+    # times (not the main path's launches: the counts were read above)
+    step = make_admm_step(spec, rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
+                          compute_cond=False, grad_method="streamed")
+    batch = make_agent_batch(splits, dev)
+    theta, psi = torch.as_tensor(res.theta, device=dev), torch.as_tensor(res.psi, device=dev)
+    sel = np.random.RandomState(cfg.seed).choice(len(X_tr), C7_CV_MAX, replace=False)
+    Xc, Yc = torch.as_tensor(X_tr[sel], device=dev), torch.as_tensor(Y_tr[sel], device=dev)
+    folds = kfold_pad_indices(C7_CV_MAX, cfg.cv_folds, cfg.seed, dev)
+    out = step(theta, psi, batch)
+    step_ms = _cuda_time_ms(lambda: step(theta, psi, batch), 1)
+    cv_ms = _cuda_time_ms(lambda: cv_fold_scores_impl(spec, Xc, Yc, out.z, *folds,
+                                                      noise_std=cfg.noise_std), 3)
+    rows = np.array([h["consensus_params"] for h in res.cv_history])
+    backfill_ms = _cuda_time_ms(lambda: host_condition_numbers(spec, splits, rows, device=dev), 1)
+    del out, batch
+    torch.cuda.empty_cache()
+
+    # fusion off: K1 float32 in K3's place, one iteration
+    config.use_fusion = "off"
+    try:
+        K.reset_launch_counts()
+        t1 = time.time()
+        off = train(spec, splits, X_tr, Y_tr, config7_train_config(1, verbose=False), device=dev)
+        torch.cuda.synchronize()
+        off_s = time.time() - t1
+        off_counts = K.launch_counts()
+    finally:
+        config.use_fusion = "auto"
+    off_rescores = sum(h["solver"] == "float64-rescue" for h in off.cv_history)
+    want_k1 = (1 + P) + 1 + off_rescores
+    check(off_counts["K1"] == want_k1 and sum(off_counts.values()) == want_k1,
+          f"config #7 at 12 qubits with fusion off launches {off_counts}: want K1 = 1 + {P} + "
+          f"1 + {off_rescores} and no other kernel")
+    off_rel = abs(off.nll_history[0]["total_nll"] / res.nll_history[0]["total_nll"] - 1)
+    print(f"phase 19b config #7 at 12 qubits ({time.time() - t0:.2f} s) [{smi}]: {len(X_tr)} "
+          f"train rows over {C7_AGENTS} agents, chebyshev {C12_QUBITS} qubits / {C7_LAYERS} "
+          f"layers (P = {P}), {C7_ITERS} streamed iterations with compute_cond=True, cond_mode "
+          f"auto = host, in {train_s:.2f} s (peak allocated {peak:.2f} GiB); launches {counts} "
+          f"(K3 = {want_k3}, K1_f64 = {want_f64}), no plain engine; nll_sum "
+          f"{[round(h['total_nll'], 4) for h in res.nll_history]}, CV-NLPD "
+          f"{[round(h['consensus_cv_score'], 4) for h in res.cv_history]}; iteration 1's "
+          f"agent NLLs of agents {held} {own.tolist()} vs the plain float64 engine's "
+          f"{plain_nll.tolist()}: rel dev {nll_rel:.2e} (bar {nll_bar:.2e}; K3's features "
+          f"outside the step: {k3_nll.tolist()}); a step {step_ms:.1f} ms, a CV pass "
+          f"{cv_ms:.2f} ms, the backfill of {len(rows)} z rows {backfill_ms:.1f} ms; fusion "
+          f"off (K1 float32): 1 iteration in "
+          f"{off_s:.2f} s, launches {off_counts}, iteration 1 nll_sum rel dev from K3's "
+          f"{off_rel:.2e}", flush=True)
+    check(nll_rel <= nll_bar, f"config #7 at 12 qubits: agent NLLs {own} vs the plain float64 "
+                              f"engine's {plain_nll}: rel dev {nll_rel} > {nll_bar}")
+    return {"train_s": train_s, "launches": counts, "peak_gib": peak, "step_ms": step_ms,
+            "cv_ms": cv_ms, "backfill_ms": backfill_ms, "agent_nll_rel_dev": nll_rel,
+            "agent_nll": own.tolist(), "agent_nll_plain_f64": plain_nll.tolist(),
+            "agent_nll_bar": nll_bar, "agent_nll_held_agents": held,
+            "nll_sum": [h["total_nll"] for h in res.nll_history],
+            "fusion_off": {"s": off_s, "launches": off_counts, "nll_sum_rel_dev": off_rel}}
+
+
+def config7_wide_fixture_phase(dev, ref) -> dict:
+    """Phase 19c, the fixture problem: config #7's fixture problem (phase
+    11a's data, 999 rows over 8 agents) at 12 qubits for C12_FIX_ITERS
+    iterations and its CG posterior, held to the 12-qubit fixture as 11a
+    holds the 10-qubit one: z within 5e-3, agent NLLs at JAX's own z within
+    ``config7_nll_bars``, CV and test NLPD within max(0.05, 2 |JAX f32 - JAX
+    f64|); K3's exact launches and no other kernel."""
+    import torch
+
+    from dqgp_tpu_torch.data import generate_data_numpy
+    from dqgp_tpu_torch.driver import train
+    from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.parallel import blocked as BL
+
+    t0 = time.time()
+    spec = config7_spec(C12_QUBITS)
+    P = spec.num_parameters
+    X, Y = generate_data_numpy(C12_FIX_SAMPLES, 2, 0.1, C7_SEED)
+    check(array_digest(X) == ref["problem"]["x_sha256"]
+          and array_digest(Y) == ref["problem"]["y_sha256"]
+          and ref["problem"]["num_qubits"] == C12_QUBITS, "12-qubit fixture dataset differs")
+    X_tr, Y_tr, X_te, Y_te, splits = config7_problem(C12_FIX_SAMPLES, C12_FIX_AGENTS)
+    check([len(x) for x, _ in splits] == ref["problem"]["shard_sizes"], "shard sizes differ")
+    cfg = config7_train_config(C12_FIX_ITERS, verbose=False)
+    K.reset_launch_counts()
+    res = train(spec, splits, X_tr, Y_tr, cfg, device=dev)
+    predict = BL.make_cg_predictor(spec, X_tr, Y_tr, torch.as_tensor(res.z, device=dev),
+                                   cfg.noise_std, device=dev)
+    mean, var = predict(X_te)
+    metrics = evaluate_predictions(Y_te, mean, var)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
+    want_k3 = C12_FIX_ITERS * (P + 2) + rescores + 2
+    check(counts["K3"] == want_k3 and sum(counts.values()) == counts["K3"],
+          f"12-qubit fixture launches {counts}: want K3 = {C12_FIX_ITERS}*({P}+2) + "
+          f"{rescores} + 2 and no other kernel")
+    nll_at_ref = config7_agent_nll_at(spec, splits, ref["z_trajectory"][:C12_FIX_ITERS], dev,
+                                      cfg.noise_std)
+    z = np.array([h["consensus_params"] for h in res.cv_history])
+    z_devs = np.abs(z - np.array(ref["z_trajectory"])).max(axis=1)
+    print(f"phase 19c 12-qubit fixture problem: z dev by iteration "
+          f"{[f'{d:.1e}' for d in z_devs]}", flush=True)
+    z_dev, nll_dev, cv_ratio, t_ratio = check_config7_fixture(res, metrics, ref, C12_FIX_ITERS,
+                                                              nll_at_ref)
+    report = {"s": time.time() - t0, "launches": counts, "z_dev": z_dev,
+              "z_dev_by_iteration": z_devs.tolist(), "agent_nll_rel_dev_at_jax_z": nll_dev,
+              "agent_nll_bars": config7_nll_bars(ref).tolist(), "cv_nlpd_over_bar": cv_ratio,
+              "test_nlpd_over_bar": t_ratio, "test_nlpd": metrics["nlpd"],
+              "jax_test_nlpd": ref["test_metrics"]["nlpd"], "jax_cpu_s": ref["seconds_cpu"]}
+    print("phase 19c fixture " + json.dumps(report, default=float), flush=True)
+    return report
+
+
+def run_e_at_reference_z(flags, split, ref, device) -> dict:
+    """Run E's noise fit and CG route at JAX's own selected z (the fixture's
+    ``best_cv_z``) on the CLI's split, as the CLI predicts: the fitted sigma
+    within SIGMA_RTOL of JAX's; with JAX's sigma the test and
+    train-subsample NLPD within ``scale_out_nlpd_bar`` of JAX's, and the CG
+    mean and variance on the test rows against the dense float64 posterior
+    (CG_MEAN_RTOL / CG_VAR_RTOL, CG_ATOL)."""
+    import torch
+
+    from dqgp_tpu_torch.models.gp import evaluate_predictions, fit_noise_std, predict_quantum_gp
+    from dqgp_tpu_torch.parallel import blocked as BL
+
+    want = ref["summary"]
+    X_tr, X_te, Y_tr, Y_te = split
+    spec = config7_spec(int(flags[flags.index("--num-qubits") + 1]))
+    z = np.asarray(want["best_cv_z"], np.float64)
+    sigma = want["noise_fit"]["fitted_noise_std"]
+    fit = fit_noise_std(spec, X_tr, Y_tr, z, current_noise_std=want["config"]["noise_std"],
+                        device=device)
+    out = {"sigma_rel": abs(fit.noise_std / sigma - 1)}
+    check(out["sigma_rel"] <= SIGMA_RTOL, f"run E at JAX's z: fitted sigma {fit.noise_std} vs "
+                                          f"JAX's {sigma} beyond rtol {SIGMA_RTOL}")
+    X_t, Y_t = torch.as_tensor(X_tr, device=device), torch.as_tensor(Y_tr, device=device)
+    z_t = torch.as_tensor(z, device=device)
+    predict = BL.make_cg_predictor(spec, X_t, Y_t, z_t, sigma, device=device)
+    threshold = int(flags[flags.index("--predict-cg-threshold") + 1])
+    sub_n = min(len(X_tr), max(threshold, 1024))
+    sel = np.random.RandomState(want["config"]["seed"]).choice(len(X_tr), sub_n, replace=False)
+    mean = None
+    for part, X, Y in (("test", X_te, Y_te), ("train", X_tr[sel], Y_tr[sel])):
+        m, v = predict(X)
+        got = evaluate_predictions(Y, m, v)["nlpd"]
+        bar = scale_out_nlpd_bar(ref, part)
+        out[f"{part}_nlpd"], out[f"{part}_nlpd_bar"] = got - want[f"{part}_metrics"]["nlpd"], bar
+        check(abs(out[f"{part}_nlpd"]) <= bar,
+              f"run E at JAX's z: {part} NLPD {got} vs JAX's {want[f'{part}_metrics']['nlpd']} "
+              f"beyond {bar}")
+        if mean is None:
+            mean, var = m, v
+    m_d, v_d = predict_quantum_gp(spec, X_t, Y_t, torch.as_tensor(X_te, device=device), z_t,
+                                  noise_std=sigma)
+    out["dense_test_nlpd"] = (evaluate_predictions(Y_te, m_d, v_d)["nlpd"]
+                              - ref["nlpd_at_z"]["test_nlpd_dense"])
+    out["cg_mean_over_bar"] = _allclose(mean.cpu(), m_d.cpu(), CG_MEAN_RTOL, CG_ATOL)
+    out["cg_var_over_bar"] = _allclose(var.cpu(), v_d.cpu(), CG_VAR_RTOL, CG_ATOL)
+    check(out["cg_mean_over_bar"] <= 1.0 and out["cg_var_over_bar"] <= 1.0,
+          f"run E at JAX's z: the CG route disagrees with the dense posterior: {out}")
+    return out
+
+
+def run_e_launches_expected(summary, num_parameters: int) -> dict:
+    """Run E's launches: K3 as in runs C and D; K1 float64 once an agent and
+    16 z rows in the backfill and once in the noise fit."""
+    return {"K3": scale_out_launches_expected(summary, num_parameters),
+            "K1_f64": backfill_launches(summary["iterations"], summary["config"]["n_agents"]) + 1}
+
+
+def run_e_phase(dev, ref) -> dict:
+    """Phase 19c, run E: the port's CLI on RUN_E_FLAGS (config #7's CLI flags
+    at 12 qubits with the condition numbers and the noise fit, on the CG
+    route) against the JAX CLI's run (the fixture's ``run_e``), at run C's
+    bars: the dataset (X exact, Y within SCALE_OUT_Y_TOL), the summary's
+    keys and stop, z and CV-NLPD over SCALE_OUT_HELD_ITERS, the condition
+    numbers' buckets, and at JAX's z the fitted sigma and the NLPDs
+    (``run_e_at_reference_z``); the launches exactly and no plain engine."""
+    import contextlib
+    from unittest import mock
+
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+
+    check(ref["flags"] == RUN_E_FLAGS + ["--cond-mode", "host"],
+          "run E's flags differ from the fixture's")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_run_e_") as out_dir:
+        K.reset_launch_counts()
+        with contextlib.ExitStack() as patches:
+            plain = {n: patches.enter_context(mock.patch.object(K, n, wraps=getattr(K, n)))
+                     for n in PLAIN_ENGINES}
+            summary, stages, split, wall = run_port_cli(
+                RUN_E_FLAGS + ["--device", str(dev)], os.path.join(out_dir, "run_E.log"))
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    want = run_e_launches_expected(summary, config7_spec(C12_QUBITS).num_parameters)
+    check(counts == want, f"run E: launches {counts}, want {want} and no other kernel")
+    plain = {n: m.call_count for n, m in plain.items() if m.call_count}
+    check(not plain, f"run E reached a plain engine on the card: {plain}")
+    dev_ = hold_scale_out_run("E", summary, split, ref)
+    check(_cond_buckets(summary) == _cond_buckets(ref["summary"]),
+          f"run E: host condition numbers "
+          f"{[h['condition_numbers'] for h in summary['nll_history']]} not in JAX's buckets")
+    t0 = time.time()
+    at_z = run_e_at_reference_z(RUN_E_FLAGS, split, ref, dev)
+    report = {"stages_s": stages, "wall_s": wall, "launches": counts, "deviations": dev_,
+              "at_jax_z": at_z, "at_jax_z_s": time.time() - t0,
+              "sigma": summary["noise_fit"]["fitted_noise_std"],
+              "jax_sigma": ref["summary"]["noise_fit"]["fitted_noise_std"],
+              "test_nlpd": summary["test_metrics"]["nlpd"],
+              "jax_test_nlpd": ref["summary"]["test_metrics"]["nlpd"],
+              "jax_cpu_s": ref["seconds_cpu"]}
+    print("phase 19c run E " + json.dumps(report, default=float), flush=True)
+    return report
+
+
+def wide_phase(dev, smi: str, rand_angles, full=None) -> dict:
+    """Phase 19: 19a, 19b (on ``full``, 11b's problem, or the same made anew)
+    and 19c. Returns the kernels' records and the phases' reports."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t_phase = time.time()
+    with open(Q12_FIXTURE) as f:
+        fixture = json.load(f)
+    kernels = check_wide_kernels(rand_angles, smi)
+    if full is None:
+        X_tr, Y_tr, _, _, splits = config7_problem(C7_SAMPLES, C7_AGENTS)
+        full = (X_tr, Y_tr, splits)
+    c12 = config7_wide_phase(dev, smi, full, fixture["fixture"])
+    fix = config7_wide_fixture_phase(dev, fixture["fixture"])
+    run_e = run_e_phase(dev, fixture["run_e"])
+    print(f"phase 19 11 and 12 qubits ({time.time() - t_phase:.2f} s) [{smi}]", flush=True)
+    return {"kernels": kernels, "config7": c12, "fixture": fix, "run_e": run_e}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3140,6 +3660,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cli", action="store_true",
                     help="phases 1, 2 and 17 (the README's SRTM command and config #5 "
                          "through the port's CLI) only, without the result lines")
+    ap.add_argument("--q12", action="store_true",
+                    help="phases 1, 2 and 19 (K1 and K3 at 11 and 12 qubits, config #7 at 12 "
+                         "qubits at full width and against the JAX package) only, without the "
+                         "result lines")
     ap.add_argument("--scale-out", action="store_true",
                     help="phases 1, 2 and 18 (the clip, --regularization on the CLI's CG "
                          "route, the Gram-free factor, nll_large, the example) with the "
@@ -3180,17 +3704,19 @@ def main(argv=None) -> int:
         K._library(src)
     for src in FIRST_LAYOUTS:
         _first_layout_library(src)
-    warp_sources = {"K1": K.SOURCE, "K1_f64": K.SOURCE, "K2": K.STATES_SOURCE,
-                    "K2_f64": K.STATES_SOURCE, "K3": K.FEATURES_FUSED_SOURCE,
-                    "K4": K.FUSED_SOURCE, "vjp": K.VJP_SOURCE}
+    # each warp kernel's sources: 1-10 qubits, then 11-12 where it goes there
+    warp_sources = {name: (K.kernel_source(name, 1),) + (
+        (K.WIDE_SOURCES[name],) if name in K.WIDE_SOURCES else ()) for name in WARP_KERNELS}
     regs = {}
-    for name, src in warp_sources.items():
-        log = builds[src][1]
-        regs[name] = warp_ptxas(log, WARP_KERNELS[name])
+    for name, srcs in warp_sources.items():
+        regs[name] = {}
+        for src in srcs:
+            regs[name].update(warp_ptxas(builds[src][1], WARP_KERNELS[name]))
     fid_circuit = build_circuit("kyriienko", FID_QUBITS, 1, FID_LAYERS)
     main_circuit = northstar_spec().circuit
     # each warp kernel's geometry at its paths' circuits: (kernel, geometry, qubits, path)
     c7_circuit = config7_spec().circuit
+    c12_circuit = config7_spec(C12_QUBITS).circuit
     geos = [("K1", K.features_geometry(main_circuit), NUM_QUBITS, "the north star"),
             ("K1_f64", K.features_geometry(main_circuit, 8), NUM_QUBITS,
              "the north star's backfill"),
@@ -3199,6 +3725,10 @@ def main(argv=None) -> int:
             ("K2_f64", K.states_geometry(fid_circuit, 8), FID_QUBITS,
              "config #5's dataset and backfill"),
             ("K3", K.fused_geometry(c7_circuit), C7_QUBITS, "config #7"),
+            ("K3", K.fused_geometry(c12_circuit), C12_QUBITS, "config #7 at 12 qubits"),
+            ("K1", K.features_geometry(c12_circuit), C12_QUBITS, "config #7 at 12 qubits"),
+            ("K1_f64", K.features_geometry(c12_circuit, 8), C12_QUBITS,
+             "config #7's backfill at 12 qubits"),
             ("K4", K.fused_geometry(fid_circuit), FID_QUBITS, "config #5"),
             ("vjp", K.vjp_geometry(main_circuit), NUM_QUBITS, "the north star"),
             ("vjp", K.vjp_geometry(fid_circuit), FID_QUBITS, "config #5"),
@@ -3211,14 +3741,15 @@ def main(argv=None) -> int:
                                      or "reused") for name, r in regs.items())
           + " | " + "; ".join(
               f"{name} at {path}'s circuit ({n} qubits): "
-              f"{geo.threads} threads per block, {geo.lanes} lanes a sample, {geo.samples} "
-              f"samples a block, {geo.smem_bytes} B dynamic shared memory (C {geo.c_bytes} B), "
+              f"{geo.threads} threads per block, {geo.lanes} lanes ({geo.warps} warps) a sample, "
+              f"{geo.samples} samples a block, {geo.smem_bytes} B dynamic shared memory (C "
+              f"{geo.c_bytes} B), "
               f"{k} blocks an SM ({k * geo.threads // 32} warps)"
               for (name, geo, n, path), k in zip(geos, per_sm)), flush=True)
-    for name, src in warp_sources.items():  # after the report, which names what failed
-        check(not builds[src][1] or set(regs[name]) == set(WARP_QUBITS),
-              f"ptxas reported {name} instantiations {sorted(regs[name])}, want "
-              f"{list(WARP_QUBITS)}")
+    for name, srcs in warp_sources.items():  # after the report, which names what failed
+        want = range(1, K.MAX_QUBITS[name.split("_")[0]] + 1)
+        check(not all(builds[src][1] for src in srcs) or set(regs[name]) == set(want),
+              f"ptxas reported {name} instantiations {sorted(regs[name])}, want {list(want)}")
         check(all(info[1:] == (0, 0, 0) for info in regs[name].values()),
               f"{name} uses a stack frame or spills: {regs[name]}")
     check(all(v >= 1 for v in per_sm), f"a warp kernel does not fit an SM: {per_sm}")
@@ -3248,7 +3779,10 @@ def main(argv=None) -> int:
         cli_phase(dev, smi)
     if args.scale_out:
         scale_out_phase(dev, smi, config7_cg_reference(dev), full=True)
-    if args.k1 or args.k3 or args.states or args.vjp or args.cond or args.cli or args.scale_out:
+    if args.q12:
+        wide_phase(dev, smi, rand_angles)
+    if (args.k1 or args.k3 or args.states or args.vjp or args.cond or args.cli or args.scale_out
+            or args.q12):
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
@@ -3475,7 +4009,12 @@ def main(argv=None) -> int:
 
     # 18. the rest of the one-device scale-out, on 11b's z -------------------
     scale = scale_out_phase(dev, smi, c7)
+    full = (c7["X_tr"], c7["Y_tr"], c7["splits"])
     del c7
+
+    # 19. 11 and 12 qubits: K1 and K3 across warps, config #7 at 12 qubits ---
+    wide = wide_phase(dev, smi, rand_angles, full)
+    del full
 
     print(json.dumps({"kernels": [
         {"name": "pauli_features (K1)", "route": "cuda",
@@ -3524,6 +4063,24 @@ def main(argv=None) -> int:
          "replaces": "dqgp_tpu/ops/pallas_circuit.py:278",
          "launches": ucounts["K4"], "max_abs_err": err["K4"], **st["K4"],
          "library_ms": None, "max_abs_err_vs_unfused": err["K4_unfused"]},
+        {"name": "pauli_features_fused at 11-12 qubits (K3)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/pauli_features_fused_q11_12.cu",
+         "replaces": "dqgp_tpu/ops/pallas_circuit.py:330",
+         "launches": wide["config7"]["launches"]["K3"], **wide["kernels"]["K3"],
+         "library_ms": None, "launches_fixture": wide["fixture"]["launches"]["K3"],
+         "launches_cli_run_e": wide["run_e"]["launches"]["K3"]},
+        {"name": "pauli_features at 11-12 qubits (K1)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/pauli_features_q11_12.cu",
+         "replaces": "dqgp_tpu/ops/pallas_circuit.py:392",
+         "launches": wide["config7"]["fusion_off"]["launches"]["K1"], **wide["kernels"]["K1"],
+         "library_ms": None},
+        {"name": "pauli_features float64 at 11-12 qubits (K1_f64)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/pauli_features_f64_q11_12.cu",
+         "replaces": "dqgp_tpu/ops/statevector.py:148",
+         "replaces_note": "no Pallas kernel: the JAX package runs float64 features on its "
+                          "complex128 XLA engine (state_from_angles :148, pauli_features :172)",
+         "launches": wide["config7"]["launches"]["K1_f64"], **wide["kernels"]["K1_f64"],
+         "library_ms": None, "launches_cli_run_e": wide["run_e"]["launches"]["K1_f64"]},
         {"name": "circuit_vjp (the backward of K1 and K2)", "route": "cuda",
          "source": "dqgp_tpu_torch/csrc/circuit_vjp.cu",
          "replaces": "dqgp_tpu/parallel/consensus.py:157",

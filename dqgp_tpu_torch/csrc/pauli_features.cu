@@ -29,7 +29,7 @@
 // at an odd stride); no state, so the block size no longer depends on the
 // qubit count. Blocks are persistent: each loads the gate table once, then
 // its warps walk the batch a warp-sized group of samples at a time. The
-// kernel is templated on n (1..10), so every register index is a
+// kernel is templated on n (1..12), so every register index is a
 // compile-time constant; up to 4 qubits it is held to 64 registers a thread
 // (GateFeaturesMinBlocks: 32 resident warps an SM), which takes the
 // north-star step's 2,633 warps in one round, in 128-thread blocks so that
@@ -38,6 +38,12 @@
 // (chip_smoke.py's phase 2 fails otherwise). Trig is warp_state.cuh's
 // sin_cos (sincosf's algorithm, no fast-math intrinsics): features are held
 // to the plain PyTorch engine at 5e-6.
+//
+// At 11 and 12 qubits (pauli_features_q11_12.cu, pauli_features_f64_q11_12.cu)
+// a sample spans 2 and 4 warps, 32 amplitudes a lane as at 10 qubits: a gate
+// on qubit 10 or 11 trades amplitudes with the partner warp through shared
+// memory (warp_state.cuh's su2_warp, perm_warp), and the reduction adds the
+// warps' shares there before the row is written.
 //
 // Design, float64 (warp_pauli_features_f64_kernel): the float32 design in
 // complex128, through the same batch loop, gate bodies and reduction
@@ -100,8 +106,17 @@ warp_pauli_features_f64_kernel(const double* __restrict__ angles,
 
 }  // namespace
 
-#define DQGP_FOR_EACH_N(X) \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
+// The qubit counts this translation unit instantiates, in float32 and in
+// float64: 1-10 here. pauli_features_q11_12.cu and
+// pauli_features_f64_q11_12.cu include this file with their own lists (11
+// and 12 qubits, a sample across 2 and 4 warps), so that nvcc builds them
+// beside this one, in parallel.
+#ifndef DQGP_F32_QUBITS
+#define DQGP_F32_QUBITS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
+#endif
+#ifndef DQGP_F64_QUBITS
+#define DQGP_F64_QUBITS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
+#endif
 
 extern "C" {
 
@@ -113,12 +128,12 @@ int dqgp_pauli_features(const float* angles, const int* gates, float* out,
                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
-#define DQGP_CASE(N)                                                       \
-  case N:                                                                  \
-    return launch_persistent(warp_pauli_features_kernel<N>,                \
-                             Geometry<N>::kSamples, B, tpb, smem_bytes, s, \
-                             angles, gates, out, B, G);
-    DQGP_FOR_EACH_N(DQGP_CASE)
+#define DQGP_CASE(N)                                                                 \
+  case N:                                                                            \
+    return launch_groups(warp_pauli_features_kernel<N>, Geometry<N>::kSamples,       \
+                         Geometry<N>::kW, B, tpb, smem_bytes, s, angles, gates, out, \
+                         B, G);
+    DQGP_F32_QUBITS(DQGP_CASE)
 #undef DQGP_CASE
   }
   return (int)cudaErrorInvalidValue;
@@ -131,7 +146,7 @@ int dqgp_pauli_features_blocks_per_sm(int n, int tpb, long long smem_bytes) {
 #define DQGP_CASE(N) \
   case N:            \
     return blocks_per_sm(warp_pauli_features_kernel<N>, tpb, smem_bytes);
-    DQGP_FOR_EACH_N(DQGP_CASE)
+    DQGP_F32_QUBITS(DQGP_CASE)
 #undef DQGP_CASE
   }
   return -1;
@@ -144,12 +159,12 @@ int dqgp_pauli_features_f64(const double* angles, const int* gates, double* out,
                             void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
-#define DQGP_CASE(N)                                                                   \
-  case N:                                                                              \
-    return launch_persistent(warp_pauli_features_f64_kernel<N>,                        \
-                             Geometry<N, double>::kSamples, B, tpb, smem_bytes, s,     \
-                             angles, gates, out, B, G);
-    DQGP_FOR_EACH_N(DQGP_CASE)
+#define DQGP_CASE(N)                                                                \
+  case N:                                                                           \
+    return launch_groups(warp_pauli_features_f64_kernel<N>,                         \
+                         Geometry<N, double>::kSamples, Geometry<N, double>::kW, B, \
+                         tpb, smem_bytes, s, angles, gates, out, B, G);
+    DQGP_F64_QUBITS(DQGP_CASE)
 #undef DQGP_CASE
   }
   return (int)cudaErrorInvalidValue;
@@ -160,7 +175,7 @@ int dqgp_pauli_features_f64_blocks_per_sm(int n, int tpb, long long smem_bytes) 
 #define DQGP_CASE(N) \
   case N:            \
     return blocks_per_sm(warp_pauli_features_f64_kernel<N>, tpb, smem_bytes);
-    DQGP_FOR_EACH_N(DQGP_CASE)
+    DQGP_F64_QUBITS(DQGP_CASE)
 #undef DQGP_CASE
   }
   return -1;

@@ -30,8 +30,13 @@
 // from the reduction. Blocks are persistent: each loads the tables once,
 // then its warps walk the batch a warp-sized group of samples at a time,
 // with no barrier after the tables are loaded. The kernel is templated on n
-// (1..10), so every register index is a compile-time constant, and ptxas
-// reports no stack frame and no spills for any of the ten. Trig is
+// (1..12), so every register index is a compile-time constant, and ptxas
+// reports no stack frame and no spills for any of the twelve. At 11 and 12
+// qubits (pauli_features_fused_q11_12.cu) a sample spans 2 and 4 warps, 32
+// amplitudes a lane: an op on qubit 10 or 11 trades amplitudes with the
+// partner warp through shared memory, the reduction adds the warps' shares
+// there, and the phase runs derive C's columns from their members (C would
+// take 176 and 384 KB: warp_program.cuh). Trig is
 // warp_state.cuh's sin_cos (sincosf's algorithm, no fast-math intrinsics):
 // features are held to the plain fused engine at 8e-6.
 //
@@ -68,8 +73,12 @@ warp_features_kernel(const float* __restrict__ angles,
 
 }  // namespace
 
-#define DQGP_FOR_EACH_N(X) \
-  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
+// The qubit counts this translation unit instantiates: 1-10 here.
+// pauli_features_fused_q11_12.cu includes this file with 11 and 12 (a sample
+// across 2 and 4 warps), so that nvcc builds them beside this one, in parallel.
+#ifndef DQGP_QUBITS
+#define DQGP_QUBITS(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10)
+#endif
 
 extern "C" {
 
@@ -85,13 +94,13 @@ int dqgp_pauli_features_fused(const float* angles, const float* cperm,
                               long long smem_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (n) {
-#define DQGP_CASE(N)                                                          \
-  case N:                                                                     \
-    return launch_persistent(warp_features_kernel<N>, Geometry<N>::kSamples, \
-                             B, tpb, smem_bytes, s, angles, cperm, ops,      \
-                             gates, members, out, B, num_gates, n_ops,       \
-                             n_gates, n_members, n_su2, KT);
-    DQGP_FOR_EACH_N(DQGP_CASE)
+#define DQGP_CASE(N)                                                            \
+  case N:                                                                       \
+    return launch_groups(warp_features_kernel<N>, Geometry<N>::kSamples,        \
+                         Geometry<N>::kW, B, tpb, smem_bytes, s, angles, cperm, \
+                         ops, gates, members, out, B, num_gates, n_ops,         \
+                         n_gates, n_members, n_su2, KT);
+    DQGP_QUBITS(DQGP_CASE)
 #undef DQGP_CASE
   }
   return (int)cudaErrorInvalidValue;
@@ -104,7 +113,7 @@ int dqgp_pauli_features_fused_blocks_per_sm(int n, int tpb, long long smem_bytes
 #define DQGP_CASE(N) \
   case N:            \
     return blocks_per_sm(warp_features_kernel<N>, tpb, smem_bytes);
-    DQGP_FOR_EACH_N(DQGP_CASE)
+    DQGP_QUBITS(DQGP_CASE)
 #undef DQGP_CASE
   }
   return -1;

@@ -13,9 +13,12 @@
 // for a CZ) straight from the angle row.
 //
 // Shared memory holds only the tables, the phase-pattern matrix C (permuted
-// so that the lanes of a group read consecutive words) and, per warp, its
-// samples' staged rows (angles loaded coalesced, at an odd stride, and the
-// SU2 ops' 2x2s, which the lanes of a sample build in turn). Blocks are
+// so that the lanes of a group read consecutive words; from 11 qubits up,
+// where C takes 176 KB and more, the kernel derives its columns from the
+// members' codes instead, apply_diag_codes, and the warps' exchange slots
+// take C's place) and, per warp, its samples' staged rows (angles loaded
+// coalesced, at an odd stride, and the SU2 ops' 2x2s, which the lanes of a
+// sample build in turn). Blocks are
 // persistent: each loads the tables once, then its warps walk the batch a
 // warp-sized group of samples at a time, with no barrier after the tables
 // are loaded.
@@ -28,10 +31,11 @@
 //           the staged row) << 2
 //     PERM: a CX on qubit (target), control
 //     DIAG: its K member angles lie at [first, first + K) of the staged row,
-//           aux = first column of C
+//           aux = first column of C, which is the index of its first member
 //   gate table rows [kind, index into the angle row], SU2 gates only;
 //   member table: each DIAG member's index into the angle row, -1 for a CZ
-//   (its angle is pi).
+//   (its angle is pi); from 11 qubits up followed by each member's code,
+//   kind | qubit << 4 | control << 8 (apply_diag_codes).
 // A sample's staged row is its G angles, its members' angles and, where the
 // sample spans several lanes, its SU2 ops' coefficients (8 an op), which the
 // lanes of the sample build between them.
@@ -108,17 +112,20 @@ struct ProgramArgs {
 template <int N, typename Finish>
 __device__ __forceinline__ void run_fused_batch(const ProgramArgs& p, Finish finish) {
   using Geo = Geometry<N>;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) float smem_all[];
+  float* const smem = smem_all + Exchange<N, float>::kFloats;  // after the exchange slots
   const int B = p.B, num_gates = p.num_gates, n_ops = p.n_ops, n_members = p.n_members;
   const int op_words = kOpWords * n_ops, gate_words = kGateWords * p.n_gates;
+  // from 11 qubits up the member table is followed by each member's code
+  const int member_words = n_members * (Geo::kW > 1 ? 2 : 1);
   // the tables, then the batch loop's bound and stride
-  const int table_words = (op_words + gate_words + n_members + 2 + 3) & ~3;
+  const int table_words = (op_words + gate_words + member_words + 2 + 3) & ~3;
   const int coef_words = Geo::kL > 1 ? 8 * p.n_su2 : 0;
   const int rstride = (num_gates + n_members + coef_words) | 1;
   int* ops_s = reinterpret_cast<int*>(smem);
   int* gates_s = ops_s + op_words;
   int* members_s = gates_s + gate_words;
-  volatile int* loop_s = members_s + n_members;  // [groups, stride]
+  volatile int* loop_s = members_s + member_words;  // [groups, stride]
   float* c_s = smem + table_words;  // [column][register][lane of the group]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   // Per warp: its samples' staged rows, then one word that holds the group
@@ -128,22 +135,25 @@ __device__ __forceinline__ void run_fused_batch(const ProgramArgs& p, Finish fin
 
   for (int i = threadIdx.x; i < op_words; i += blockDim.x) ops_s[i] = p.ops[i];
   for (int i = threadIdx.x; i < gate_words; i += blockDim.x) gates_s[i] = p.gates[i];
-  for (int i = threadIdx.x; i < n_members; i += blockDim.x) members_s[i] = p.members[i];
+  for (int i = threadIdx.x; i < member_words; i += blockDim.x) members_s[i] = p.members[i];
   if (threadIdx.x == 0) {
     loop_s[0] = (B + Geo::kSamples - 1) / Geo::kSamples;
-    loop_s[1] = gridDim.x * (blockDim.x >> 5);
+    loop_s[1] = gridDim.x * (blockDim.x >> 5) / Geo::kW;  // groups of kW warps
   }
   for (int i = threadIdx.x; i < Geo::kDim * p.KT; i += blockDim.x) c_s[i] = p.cperm[i];
   __syncthreads();
 
-  const int lig = lane & (Geo::kL - 1);  // lane within the sample's group
+  // lane within the sample's group (from 11 qubits up, over its warps)
+  const int lig = (lane & (Geo::kL - 1)) + (Geo::kW > 1 ? warp % Geo::kW * 32 : 0);
   const int sw = lane / Geo::kL;         // the warp's sample this lane works on
   float* row = stage + sw * rstride;
   // Nothing of the batch loop stays live across the op loop beside the
   // state: the group index, the loop's bound and its stride wait in shared
   // memory (volatile words, so the compiler reloads them), and which of the
-  // group's samples exist (s0 + s < B) is tested where it is needed.
-  for (int g = blockIdx.x * (blockDim.x >> 5) + warp; g < loop_s[0];) {
+  // group's samples exist (s0 + s < B) is tested where it is needed. Each of
+  // a group's warps stages its own copy of the group's row and builds its
+  // own 2x2s.
+  for (int g = (blockIdx.x * (blockDim.x >> 5) + warp) / Geo::kW; g < loop_s[0];) {
     const int s0 = g * Geo::kSamples;
     __syncwarp();
     if (lane == 0) *group_word = g;
@@ -165,7 +175,9 @@ __device__ __forceinline__ void run_fused_batch(const ProgramArgs& p, Finish fin
       for (int o = 0; o < n_ops; ++o) {
         const int* op = ops_s + kOpWords * o;
         const int at = op[5] >> 2;
-        if (op[0] != OP_SU2 || ((at >> 3) & (Geo::kL - 1)) != lig) continue;
+        // (from 11 qubits up each warp of the sample builds them all)
+        if (op[0] != OP_SU2 || ((at >> 3) & (Geo::kL - 1)) != (Geo::kW > 1 ? lane : lig))
+          continue;
         const Coef u = su2_product(gates_s + kGateWords * op[3], op[4], row);
         float* c = row + at;
         c[0] = u.a0r; c[1] = u.a0i; c[2] = u.b0r; c[3] = u.b0i;
@@ -197,6 +209,10 @@ __device__ __forceinline__ void run_fused_batch(const ProgramArgs& p, Finish fin
         apply_su2<N>(re, im, u, aux & 3, q, lig, make_control(ctl, lig));
       } else if (type == OP_PERM) {
         perm<N>(re, im, q, make_control(ctl, lig));
+      } else if constexpr (Geo::kW > 1) {  // C's columns from the members' codes
+        const float* a = row + first;
+        apply_diag_codes<N>(re, im, members_s + n_members + aux, count, lig,
+                            [a](int j) { return a[j]; });
       } else {
         const float* a = row + first;
         apply_diag<N>(re, im, c_s + aux * Geo::kDim + lig, count,

@@ -3,9 +3,10 @@
 Each source under ``dqgp_tpu_torch/csrc/`` compiles on first use into a
 shared library with a plain C interface, for ``sm_90a`` (Hopper). The
 library lands in ``dqgp_tpu_torch/build/`` (ignored by git), named by a hash
-of the source, the shared headers (``csrc/*.cuh``) and the flags, so an
-edited source or header rebuilds and an unchanged one is reused. A failed
-compile raises with nvcc's stderr.
+of the source, every other file of ``csrc/`` (the shared headers, and the
+sources that a translation unit of further instantiations includes) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. A failed compile raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -49,8 +50,9 @@ def build(source: str) -> tuple[Path, str]:
     shared-memory report when a compile ran, and is empty on reuse."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    for other in sorted(CSRC_DIR.glob("*.cu*")):
+        if other != src:
+            digest.update(other.read_bytes())
     lib = BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib, ""

@@ -5,7 +5,9 @@
   (B, G) -> Pauli features (B, 3n) as [X | Y | Z] blocks, float32 or
   float64: a sample's state in registers across a warp's lanes
   (``csrc/warp_state.cuh``, templated on the real type: complex64 or
-  complex128), a gate at a time, then K3's reduction.
+  complex128), a gate at a time, then K3's reduction. At 11 and 12 qubits
+  (``csrc/pauli_features_q11_12.cu``, ``pauli_features_f64_q11_12.cu``) a
+  sample spans 2 and 4 warps.
 * ``states_from_angles`` (K2, ``csrc/states.cu``) — port of
   ``make_pallas_states_fn``: angles (B, G) -> states (B, 2^n), complex64
   from float32 angles, complex128 from float64 ones: the same register
@@ -15,7 +17,9 @@
   through the gate-fused program of ``ops/fusion.py``, float32 only like the
   Pallas kernel; a sample's state in registers across a warp's lanes, the
   fused coefficients built inside the kernel from the angles
-  (``csrc/warp_program.cuh``, the body it shares with K4).
+  (``csrc/warp_program.cuh``, the body it shares with K4); at 11 and 12
+  qubits (``csrc/pauli_features_fused_q11_12.cu``) a sample across 2 and 4
+  warps, the phase runs' pattern columns derived from their members.
 * ``states_from_angles_fused`` (K4, ``csrc/states_fused.cu``) — port of
   ``make_pallas_states_fused_fn``: the states through the fused program,
   float32 only; ``warp_program.cuh``'s body, then the write-out.
@@ -27,9 +31,14 @@
   package has no counterpart kernel: its Pallas kernels have no VJP.
   ``CircuitFunction`` makes the forward wrappers differentiable with it.
 
-K1 and K3 take qubit q as bit q of the state's index in registers and
-lanes; the states kernels (K2, K4) put the low qubits on the lanes so that a
-sample's lanes write consecutive amplitudes (``states_bit``); the adjoint
+Each kernel takes 1 to ``MAX_QUBITS[kernel]`` qubits: K1 (both precisions)
+and K3 up to 12, K2, K4 and the adjoint up to ``ONE_WARP_QUBITS`` = 10, where
+a sample's state still fits one warp (11 and 12 qubits for them are still to
+be ported); outside its range a wrapper raises on the card, naming the
+kernel and its range. K1 and K3 take qubit q as bit q of the state's index
+in registers, lanes and warps; the states kernels (K2, K4) put the low
+qubits on the lanes so that a sample's lanes write consecutive amplitudes
+(``states_bit``); the adjoint
 takes each forward kernel's map. The kernels see only those physical bits:
 the tables built here carry the map. The float64 instantiations of K1 and K2
 share every map, table and geometry rule with the float32 ones; only their
@@ -69,8 +78,17 @@ STATES_SOURCE = "states.cu"         # K2
 FUSED_SOURCE = "states_fused.cu"    # K4
 FEATURES_FUSED_SOURCE = "pauli_features_fused.cu"  # K3
 VJP_SOURCE = "circuit_vjp.cu"       # the backward of K1 and K2
-SOURCES = (SOURCE, STATES_SOURCE, FEATURES_FUSED_SOURCE, FUSED_SOURCE, VJP_SOURCE)
-MAX_QUBITS = 10
+# the instantiations at 11 and 12 qubits, translation units of their own
+WIDE_SOURCES = {"K1": "pauli_features_q11_12.cu", "K1_f64": "pauli_features_f64_q11_12.cu",
+                "K3": "pauli_features_fused_q11_12.cu"}
+SOURCES = (SOURCE, STATES_SOURCE, FEATURES_FUSED_SOURCE, FUSED_SOURCE, VJP_SOURCE,
+           *WIDE_SOURCES.values())
+ONE_WARP_QUBITS = 10  # the most qubits whose state one warp holds
+MAX_QUBITS = {"K1": 12, "K2": ONE_WARP_QUBITS, "K3": 12, "K4": ONE_WARP_QUBITS,
+              "vjp": ONE_WARP_QUBITS}
+KERNEL_NAMES = {"K1": "Pauli-feature kernel (K1)", "K2": "states kernel (K2)",
+                "K3": "fused Pauli-feature kernel (K3)", "K4": "fused states kernel (K4)",
+                "vjp": "adjoint kernel (the backward of K1 and K2)"}
 _SMEM_BUDGET = 200 * 1024  # bytes a block may take (the card allows 227 KB)
 _WARP_THREADS = 256             # the warp kernels' launch bound
 _WARP_SMEM_PER_SM = 224 * 1024  # what an SM's resident blocks share of its 228 KB
@@ -95,6 +113,8 @@ _SIGNATURES = {
     VJP_SOURCE: {"dqgp_circuit_vjp": [_vp] * 4 + [_i32] * 5 + [_i64, _vp],
                  "dqgp_circuit_vjp_blocks_per_sm": _OCCUPANCY_ARGS},
 }
+_SIGNATURES.update({src: _SIGNATURES[FEATURES_FUSED_SOURCE if k == "K3" else SOURCE]
+                    for k, src in WIDE_SOURCES.items()})
 # each warp kernel's (source, launch function, occupancy function)
 _WARP_KERNELS = {
     "K1": (SOURCE, "dqgp_pauli_features", "dqgp_pauli_features_blocks_per_sm"),
@@ -106,6 +126,14 @@ _WARP_KERNELS = {
     "K4": (FUSED_SOURCE, "dqgp_states_fused", "dqgp_states_fused_blocks_per_sm"),
     "vjp": (VJP_SOURCE, "dqgp_circuit_vjp", "dqgp_circuit_vjp_blocks_per_sm"),
 }
+
+
+def kernel_source(kernel: str, num_qubits: int) -> str:
+    """The source that holds warp kernel ``kernel``'s instantiation for
+    ``num_qubits``."""
+    if num_qubits > ONE_WARP_QUBITS and kernel in WIDE_SOURCES:
+        return WIDE_SOURCES[kernel]
+    return _WARP_KERNELS[kernel][0]
 
 
 def _is_cuda(t: torch.Tensor) -> bool:
@@ -219,18 +247,20 @@ def states_launch_config(num_qubits: int, row_len: int,
 
 def _check_angles(circuit: Circuit, angles: torch.Tensor, kernel: str,
                   dtypes=(torch.float32, torch.float64)) -> None:
+    """``kernel`` is a key of ``MAX_QUBITS``."""
+    name = KERNEL_NAMES[kernel]
     if angles.dtype not in dtypes:
         raise NotImplementedError(
-            f"the CUDA {kernel} kernel takes "
+            f"the CUDA {name} takes "
             f"{' or '.join(str(d) for d in dtypes)} angles, got {angles.dtype}")
     if angles.dim() != 2 or angles.shape[1] != circuit.num_gates:
         raise ValueError(f"angles must be (B, {circuit.num_gates}), got "
                          f"{tuple(angles.shape)}")
     if not angles.is_contiguous():
         raise ValueError("angles must be contiguous")
-    if not 1 <= circuit.num_qubits <= MAX_QUBITS:
-        raise ValueError(f"the CUDA {kernel} kernel supports 1 to {MAX_QUBITS} "
-                         f"qubits, got {circuit.num_qubits}")
+    if not 1 <= circuit.num_qubits <= MAX_QUBITS[kernel]:
+        raise ValueError(f"the CUDA {name} supports 1 to {MAX_QUBITS[kernel]} qubits, "
+                         f"got {circuit.num_qubits}")
 
 
 def _complex_of(dtype: torch.dtype) -> torch.dtype:
@@ -252,7 +282,7 @@ def pauli_features_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.
     """angles (B, G) float32 or float64 -> Pauli features (B, 3n), same dtype."""
     if not _is_cuda(angles):
         return pauli_features_reference(circuit, angles)
-    _check_angles(circuit, angles, "Pauli-feature")
+    _check_angles(circuit, angles, "K1")
     n = circuit.num_qubits
     B, G = angles.shape
     out = torch.empty((B, 3 * n), dtype=angles.dtype, device=angles.device)
@@ -260,7 +290,8 @@ def pauli_features_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.
         return out
     f64 = angles.dtype == torch.float64
     geo = features_geometry(circuit, angles.element_size())
-    _launch(SOURCE, "dqgp_pauli_features_f64" if f64 else "dqgp_pauli_features",
+    _launch(kernel_source("K1_f64" if f64 else "K1", n),
+            "dqgp_pauli_features_f64" if f64 else "dqgp_pauli_features",
             angles.device, angles.data_ptr(),
             _gate_table(circuit, angles.device).data_ptr(),  # qubit q on bit q
             out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
@@ -287,7 +318,7 @@ def states_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
     complex128."""
     if not _is_cuda(angles):
         return states_reference(circuit, angles)
-    _check_angles(circuit, angles, "states")
+    _check_angles(circuit, angles, "K2")
     n = circuit.num_qubits
     B, G = angles.shape
     out = torch.empty((B, circuit.dim), dtype=_complex_of(angles.dtype),
@@ -339,6 +370,11 @@ def fused_tables(circuit: Circuit, states_layout: bool = False):
       K3's map and r * L + l under the states kernels', so the lanes of a
       group read consecutive words.
 
+    From 11 qubits up C (176 KB and more) is not staged: it is (0, 32, L),
+    and the member table is followed by each member's code, kind | bit of
+    its qubit << 4 | bit of its control (0 for an RZ) << 8, from which K3
+    derives C's columns (``csrc/warp_state.cuh``'s apply_diag_codes).
+
     The op and gate tables have at least one row, so that the kernel
     always gets a valid pointer; it reads no member where there is none."""
     program = fuse_circuit(circuit)
@@ -359,9 +395,15 @@ def fused_tables(circuit: Circuit, states_layout: bool = False):
         else:  # DiagOp
             ops.append((_OP_DIAG, 0, -1, member_at, op.K, op.row_start - 8 * program.n_su2))
             member_at += op.K
-    cmat = diag_patterns_concat(program)
-    dim, KT = cmat.shape
+    dim = circuit.dim
     lanes = max(1, dim // 32)
+    if n > ONE_WARP_QUBITS:
+        members += member_codes(circuit, states_layout)
+        return (np.array(ops or [(_OP_PERM, 0, 0, 0, 0, 0)], np.int32),
+                np.array(gates or [(0, 0)], np.int32), np.array(members, np.int32),
+                np.zeros((0, 32, lanes), np.float32))
+    cmat = diag_patterns_concat(program)
+    KT = cmat.shape[1]
     if states_layout:  # amplitude r * L + l
         cperm = cmat.reshape(dim // lanes, lanes, KT).transpose(2, 0, 1)
     else:              # amplitude l * A + r
@@ -369,6 +411,17 @@ def fused_tables(circuit: Circuit, states_layout: bool = False):
     return (np.array(ops or [(_OP_PERM, 0, 0, 0, 0, 0)], np.int32),
             np.array(gates or [(0, 0)], np.int32), np.array(members, np.int32),
             np.ascontiguousarray(cperm))
+
+
+def member_codes(circuit: Circuit, states_layout: bool = False) -> list:
+    """Each phase-run member's code, kind | bit of its qubit << 4 | bit of its
+    control (0 for an RZ) << 8, in the member table's order: from 11 qubits up
+    K3 derives C's columns from them (``csrc/warp_state.cuh``'s
+    pattern_entry), as ``fusion.diag_pattern`` builds C."""
+    n = circuit.num_qubits
+    bit = (lambda q: states_bit(n, q)) if states_layout else (lambda q: q)
+    return [kind | bit(q) << 4 | max(bit(c), 0) << 8 for op in fuse_circuit(circuit).ops
+            if isinstance(op, DiagOp) for kind, q, c, _ in op.members]
 
 
 @functools.lru_cache(maxsize=128)
@@ -386,6 +439,17 @@ class WarpGeometry(NamedTuple):
     samples: int          # samples a block works on at a time
     smem_bytes: int       # dynamic shared memory a block
     c_bytes: int          # of which the permuted pattern matrix C (K3, K4)
+    warps: int = 1        # warps a sample's state spreads over (11, 12 qubits: 2, 4)
+
+
+def exchange_words(num_qubits: int) -> int:
+    """Words a warp's exchange slot takes where a sample spans several warps
+    (csrc/warp_state.cuh's Exchange): its state, 32 registers x 32 lanes, re
+    and im, then its 3n partial sums of the reduction, padded to 16 bytes;
+    none up to ``ONE_WARP_QUBITS``."""
+    if num_qubits <= ONE_WARP_QUBITS:
+        return 0
+    return (2 * 32 * 32 + 3 * num_qubits + 3) & ~3
 
 
 def _warp_geometry(num_qubits: int, table_words: int, c_bytes: int,
@@ -393,44 +457,51 @@ def _warp_geometry(num_qubits: int, table_words: int, c_bytes: int,
                    threads: int = _WARP_THREADS,
                    scratch_warp_words: int = 0, real_bytes: int = 4) -> WarpGeometry:
     """A sample's state lives in registers over max(1, 2^(n-5)) lanes, so a
-    warp works on 32 / lanes samples and no state is in shared memory. A
-    block holds its int32 tables with the batch loop's two words (padded to
-    16 bytes), C and, per warp, one word, its samples' staged rows at an
-    odd stride and ``scratch_warp_words`` of the kernel's own (after every
-    warp's rows); rows, the word and scratch are words of ``real_bytes``,
-    and in float64 a warp's rows and word are padded to 16 bytes. ``threads``
-    a block, halved until ``blocks_per_sm`` blocks (the kernel's launch
-    bound) fit an SM."""
+    warp works on 32 / lanes samples up to 10 qubits and a group of
+    2^(n-10) warps on one sample above; no state is in shared memory but
+    for the exchange slots of a sample across warps. A block holds the
+    slots of as many warps as the launch bound allows (``exchange_words``
+    each), its int32 tables with the batch loop's two words (padded to 16
+    bytes), C and, per warp, one word, its samples' staged rows at an odd
+    stride (each warp of a group its own copy) and ``scratch_warp_words`` of
+    the kernel's own (after every warp's rows); slots, rows, the word and
+    scratch are words of ``real_bytes``, and in float64 a warp's rows and
+    word are padded to 16 bytes. ``threads`` a block, halved until
+    ``blocks_per_sm`` blocks (the kernel's launch bound) fit an SM, and
+    never below a group."""
     lanes = 1 << max(0, num_qubits - 5)
-    per_warp = 32 // lanes
-    fixed = 4 * ((table_words + 2 + 3) & ~3) + c_bytes
-    rows = per_warp * (row_words | 1)
+    warps = max(1, lanes // 32)
+    per_group = max(1, 32 // lanes)  # samples a group of `warps` warps
+    slots = real_bytes * _WARP_THREADS // 32 * exchange_words(num_qubits)
+    fixed = slots + 4 * ((table_words + 2 + 3) & ~3) + c_bytes
+    rows = per_group * (row_words | 1)
     rows = rows + 1 if real_bytes == 4 else (rows + 2) & ~1
     warp_bytes = real_bytes * (rows + scratch_warp_words)
     budget = _WARP_SMEM_PER_SM // blocks_per_sm
     tpb = threads
-    while tpb > 32 and fixed + tpb // 32 * warp_bytes > budget:
+    while tpb > 32 * warps and fixed + tpb // 32 * warp_bytes > budget:
         tpb //= 2
     smem = fixed + tpb // 32 * warp_bytes
     if smem > budget:
         raise ValueError(f"{what} for {num_qubits} qubits ({fixed} B of tables, "
                          f"{warp_bytes} B a warp) exceed the {budget} B "
                          f"a block may take")
-    return WarpGeometry(tpb, lanes, tpb // 32 * per_warp, smem, c_bytes)
+    return WarpGeometry(tpb, lanes, tpb // 32 // warps * per_group, smem, c_bytes, warps)
 
 
 @functools.lru_cache(maxsize=128)
 def fused_geometry(circuit: Circuit) -> WarpGeometry:
     """K3's and K4's launch geometry for ``circuit`` (csrc/warp_program.cuh):
-    the tables are the op, gate and member tables, and a sample's staged row
-    is its G angles, its phase runs' member angles and, where it spans
-    several lanes, 8 coefficients for each SU2 op. The same for both bit
-    maps."""
+    the tables are the op, gate and member tables (with the members' codes
+    from 11 qubits up), and a sample's staged row is its G angles, its phase
+    runs' member angles and, where it spans several lanes, 8 coefficients
+    for each SU2 op. The same for both bit maps."""
     ops, gates, members, cperm = fused_tables(circuit)
     n = circuit.num_qubits
+    n_members = members.size // (2 if n > ONE_WARP_QUBITS else 1)  # then codes
     coef_words = 8 * fuse_circuit(circuit).n_su2 if n > 5 else 0
     return _warp_geometry(n, ops.size + gates.size + members.size, cperm.nbytes,
-                          circuit.num_gates + members.size + coef_words,
+                          circuit.num_gates + n_members + coef_words,
                           "the fused program's tables")
 
 
@@ -498,21 +569,23 @@ def blocks_per_sm(kernel: str, geo: WarpGeometry, num_qubits: int) -> int:
     """Resident blocks an SM holds of warp kernel ``kernel`` ("K1",
     "K1_f64", "K2", "K2_f64", "K3", "K4" or "vjp") at this geometry, as the CUDA occupancy calculator reckons it from
     the build's registers and ``geo``'s shared memory (card only)."""
-    source, _, fn = _WARP_KERNELS[kernel]
-    return getattr(_library(source), fn)(num_qubits, geo.threads, geo.smem_bytes)
+    fn = _WARP_KERNELS[kernel][2]
+    return getattr(_library(kernel_source(kernel, num_qubits)), fn)(
+        num_qubits, geo.threads, geo.smem_bytes)
 
 
 def _launch_fused(kernel: str, circuit: Circuit, angles: torch.Tensor,
                   out: torch.Tensor, states_layout: bool) -> None:
     """One launch of K3 or K4 on (B, G) float32 CUDA angles."""
-    source, fn, _ = _WARP_KERNELS[kernel]
+    n = circuit.num_qubits
     program = fuse_circuit(circuit)
     ops, gates, members, cperm = _fused_device_tables(circuit, angles.device, states_layout)
     geo = fused_geometry(circuit)
-    _launch(source, fn, angles.device, angles.data_ptr(), cperm.data_ptr(),
-            ops.data_ptr(), gates.data_ptr(), members.data_ptr(), out.data_ptr(),
-            angles.shape[0], circuit.num_qubits, circuit.num_gates, len(program.ops),
-            gates.shape[0], members.shape[0], program.n_su2, cperm.shape[0],
+    n_members = members.shape[0] // (2 if n > ONE_WARP_QUBITS else 1)  # then codes
+    _launch(kernel_source(kernel, n), _WARP_KERNELS[kernel][1], angles.device,
+            angles.data_ptr(), cperm.data_ptr(), ops.data_ptr(), gates.data_ptr(),
+            members.data_ptr(), out.data_ptr(), angles.shape[0], n, circuit.num_gates,
+            len(program.ops), gates.shape[0], n_members, program.n_su2, cperm.shape[0],
             geo.threads, geo.smem_bytes)
 
 
@@ -532,7 +605,7 @@ def states_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> torch.Te
     the JAX package's Pallas wrapper builds its packed rows from them."""
     if not _is_cuda(angles):
         return states_fused_reference(circuit, angles)
-    _check_angles(circuit, angles, "fused states", dtypes=(torch.float32,))
+    _check_angles(circuit, angles, "K4", dtypes=(torch.float32,))
     out = torch.empty((angles.shape[0], circuit.dim), dtype=torch.complex64,
                       device=angles.device)
     if angles.shape[0] == 0:
@@ -560,7 +633,7 @@ def pauli_features_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> 
     as the JAX package's Pallas wrapper builds its packed rows from them."""
     if not _is_cuda(angles):
         return pauli_features_fused_reference(circuit, angles)
-    _check_angles(circuit, angles, "fused Pauli-feature", dtypes=(torch.float32,))
+    _check_angles(circuit, angles, "K3", dtypes=(torch.float32,))
     out = torch.empty((angles.shape[0], 3 * circuit.num_qubits), dtype=torch.float32,
                       device=angles.device)
     if angles.shape[0] == 0:
@@ -621,7 +694,7 @@ def circuit_vjp(circuit: Circuit, angles: torch.Tensor, cotangent: torch.Tensor,
         raise ValueError(f"output must be one of {VJP_OUTPUTS}, got {output!r}")
     if not _is_cuda(angles):
         return circuit_vjp_reference(circuit, angles, cotangent, output)
-    _check_angles(circuit, angles, "adjoint", dtypes=(torch.float32,))
+    _check_angles(circuit, angles, "vjp", dtypes=(torch.float32,))
     n = circuit.num_qubits
     B, G = angles.shape
     want = (B, 3 * n) if output == "features" else (B, circuit.dim)

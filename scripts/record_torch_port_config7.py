@@ -116,23 +116,28 @@ def agent_nll_at(spec, splits, z_traj, dtype=jnp.float32):
     return out
 
 
-def record() -> dict:
-    spec = QuantumKernelSpec(circuit=build_circuit("chebyshev", cs.C7_QUBITS, 2, cs.C7_LAYERS),
+def record(qubits: int = cs.C7_QUBITS, n_samples: int = cs.C7_FIX_SAMPLES,
+           agents: int = cs.C7_FIX_AGENTS, iters: int = cs.C7_FIX_ITERS) -> dict:
+    """The fixture problem; other widths and cuts of config #7 with the
+    arguments (scripts/record_torch_port_12q.py: 12 qubits)."""
+    spec = QuantumKernelSpec(circuit=build_circuit("chebyshev", qubits, 2, cs.C7_LAYERS),
                              kernel_type="projected", outer_kernel="matern")
-    X, Y = generate_data_numpy(cs.C7_FIX_SAMPLES, 2, 0.1, cs.C7_SEED)
+    X, Y = generate_data_numpy(n_samples, 2, 0.1, cs.C7_SEED)
     X_tr, X_te, Y_tr, Y_te, tr_idx, te_idx = train_test_split(
         X, Y, np.arange(len(X)), test_size=cs.C7_TEST_SPLIT,
         random_state=cs.C7_SEED, shuffle=True)
-    splits = split_data_numpy(X_tr, Y_tr, cs.C7_FIX_AGENTS, "regional", 1.0, cs.C7_SEED)
-    cfg = driver.TrainConfig(max_iter=cs.C7_FIX_ITERS, seed=cs.C7_SEED,
+    splits = split_data_numpy(X_tr, Y_tr, agents, "regional", 1.0, cs.C7_SEED)
+    cfg = driver.TrainConfig(max_iter=iters, seed=cs.C7_SEED,
                              grad_method="streamed", cv_max_samples=cs.C7_CV_MAX,
                              compute_cond=False, verbose=False)
     res = driver.train(spec, splits, X_tr, Y_tr, cfg)
     z_traj = [np.asarray(h["consensus_params"]) for h in res.cv_history]
 
-    # the CV subsample, drawn as dqgp_tpu/driver.py:521-529 draws it
-    sel = np.random.RandomState(cfg.seed).choice(len(X_tr), cfg.cv_max_samples,
-                                                 replace=False)
+    # the CV subsample, drawn as dqgp_tpu/driver.py:521-529 draws it (all
+    # rows where they are no more than cv_max_samples)
+    sel = (np.random.RandomState(cfg.seed).choice(len(X_tr), cfg.cv_max_samples,
+                                                  replace=False)
+           if len(X_tr) > cfg.cv_max_samples else np.arange(len(X_tr)))
     X_cv, Y_cv = X_tr[sel], Y_tr[sel]
     cv_f32, cv_f64 = [], []
     for it, z in enumerate(z_traj, start=1):
@@ -163,11 +168,11 @@ def record() -> dict:
         "jax_version": jax.__version__,
         "backend": jax.default_backend(),
         "problem": {
-            "source": "BASELINE.md:41 config #7 at full width, 1111 samples over 8 "
-                      "agents; cli.py:342-378 classical data flow",
-            "n_samples": cs.C7_FIX_SAMPLES, "test_split": cs.C7_TEST_SPLIT,
-            "agents": cs.C7_FIX_AGENTS, "seed": cs.C7_SEED,
-            "encoding": "chebyshev", "num_qubits": cs.C7_QUBITS,
+            "source": f"BASELINE.md:41 config #7 at full width, {n_samples} samples over "
+                      f"{agents} agents; cli.py:342-378 classical data flow",
+            "n_samples": n_samples, "test_split": cs.C7_TEST_SPLIT,
+            "agents": agents, "seed": cs.C7_SEED,
+            "encoding": "chebyshev", "num_qubits": qubits,
             "num_layers": cs.C7_LAYERS, "kernel": "projected", "outer_kernel": "matern",
             "x_sha256": cs.array_digest(X),
             "y_sha256": cs.array_digest(Y),

@@ -61,17 +61,21 @@ def clip_record(reg) -> dict:
 
 def nlpd_spread(flags, summary, split) -> dict:
     """At the run's selected z, as the CLI predicts (the CG route on the
-    test rows and the seeded train subsample): the NLPDs from float32
-    features (the run's own), from float64 features, and of the dense
-    posterior (square Gram through regularize_gram)."""
+    test rows and the seeded train subsample, with the fitted noise where
+    the run fits it): the NLPDs from float32 features (the run's own), from
+    float64 features, and of the dense posterior (square Gram through
+    regularize_gram where the run regularizes)."""
     def flag(name):
         return flags[flags.index(name) + 1]
 
     spec = QuantumKernelSpec(
         circuit=build_circuit("chebyshev", int(flag("--num-qubits")), 2,
                               int(flag("--num-layers"))),
-        kernel_type="projected", outer_kernel="matern", regularization=flag("--regularization"))
+        kernel_type="projected", outer_kernel="matern",
+        regularization=flag("--regularization") if "--regularization" in flags else None)
     cfg = summary["config"]
+    noise = (summary["noise_fit"]["fitted_noise_std"] if summary.get("noise_fit")
+             else cfg["noise_std"])
     z = jnp.asarray(summary["best_cv_z"], jnp.float64)
     X_tr, Y_tr = split["X_train"], split["Y_train"]
     sub_n = min(len(X_tr), max(int(flag("--predict-cg-threshold")), 1024))
@@ -80,14 +84,14 @@ def nlpd_spread(flags, summary, split) -> dict:
     out = {}
     for label in ("f32", "f64_features"):
         with float64_features(jqk) if label == "f64_features" else mock.patch.dict({}):
-            predict = jblocked.make_cg_predictor(spec, X_tr, Y_tr, z, cfg["noise_std"])
+            predict = jblocked.make_cg_predictor(spec, X_tr, Y_tr, z, noise)
             for part, (X, Y) in parts.items():
                 mean, var = predict(X)
                 out[f"{part}_nlpd_{label}"] = evaluate_predictions(
                     Y, np.asarray(mean), np.asarray(var))["nlpd"]
     for part, (X, Y) in parts.items():
         mean, var = jpost.predict_quantum_gp(spec, jnp.asarray(X_tr), jnp.asarray(Y_tr),
-                                             jnp.asarray(X), z, noise_std=cfg["noise_std"])
+                                             jnp.asarray(X), z, noise_std=noise)
         out[f"{part}_nlpd_dense"] = evaluate_predictions(Y, np.asarray(mean),
                                                          np.asarray(var))["nlpd"]
         assert abs(out[f"{part}_nlpd_f32"] - summary[f"{part}_metrics"]["nlpd"]) <= 1e-9, out

@@ -151,7 +151,7 @@ def _cotangent(rng, circuit, rows, output):
 
 
 @pytest.mark.parametrize("output", K.VJP_OUTPUTS)
-@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
 def test_warp_model_of_the_adjoint_matches_autograd(n, output):
     c = _circuit(n, seed=n)
     kinds = {g.kind for g in c.gates}
@@ -169,7 +169,7 @@ def test_warp_model_of_the_adjoint_matches_autograd(n, output):
     np.testing.assert_allclose(got, want, rtol=0, atol=MODEL_TOL * max(1.0, np.abs(want).max()))
 
 
-@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
 def test_adjoint_warp_geometry(n):
     """K1's shared-memory layout (the (G, 3) gate table and each warp's
     staged rows, which take the gradient in place of the angles) and, where

@@ -124,13 +124,13 @@ def test_cuda_wrapper_validates_inputs(fake_cuda):
         K1.pauli_features_from_angles(c, torch.zeros((3, c.num_gates + 1)))
     with pytest.raises(ValueError, match="contiguous"):
         K1.pauli_features_from_angles(c, torch.zeros((c.num_gates, 3)).T)
-    big = Circuit(11, 1, 1, (Gate(RY, 10, pidx=0, pc=1.0),))
-    with pytest.raises(ValueError, match="1 to 10 qubits"):
+    big = Circuit(13, 1, 1, (Gate(RY, 12, pidx=0, pc=1.0),))
+    with pytest.raises(ValueError, match="1 to 12 qubits"):
         K1.pauli_features_from_angles(big, torch.zeros((2, 1)))
     assert K1.pauli_features_from_angles.launches == 0
 
 
-@pytest.mark.parametrize("n", range(1, K1.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K1.ONE_WARP_QUBITS + 1))
 def test_launch_config_fits_shared_memory(n):
     """The float64 kernel's block (its float32 twin keeps no state in shared
     memory: tests/test_torch_states_warp.py::test_features_warp_geometry)."""

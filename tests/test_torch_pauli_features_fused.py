@@ -104,7 +104,7 @@ def test_dispatch_at_10_qubits_takes_k3(monkeypatch):
     assert k3.call_count == 0
 
 
-@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
 def test_fused_features_launch_config(n):
     """K3's geometry: a sample's state in registers over max(1, 2^(n-5))
     lanes, so a block works on threads / lanes samples and holds no state in

@@ -130,7 +130,7 @@ def test_facade_fidelity_gram_matches_jax():
     np.testing.assert_allclose(qk.evaluate(X), want, rtol=0, atol=F64_ATOL)
 
 
-@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
 @pytest.mark.parametrize("real_bytes", [4, 8])
 def test_states_launch_config_fits_shared_memory(n, real_bytes):
     for G in (1, 23, 400):

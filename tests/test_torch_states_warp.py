@@ -340,7 +340,7 @@ def _logical_qubit(n, bit):
     return bit - 5 if bit >= 5 else bit + (n - 5)
 
 
-@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
 def test_states_bit_map(n):
     """Qubits 0..n-6 on the lane bits (5..), n-5..n-1 on the register bits
     (0..4), a bijection; the identity up to 5 qubits; no control stays -1."""
@@ -395,7 +395,7 @@ def test_states_tables_give_back_the_logical_program(enc, n):
     np.testing.assert_array_equal(cperm.transpose(2, 1, 0).reshape(cmat.shape), cmat)
 
 
-@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
 def test_states_warp_geometry(n):
     """K2's float32 geometry: the state in registers over max(1, 2^(n-5))
     lanes, so shared memory holds only the gate table, the batch loop's two
@@ -414,7 +414,7 @@ def test_states_warp_geometry(n):
     assert (kyr6.threads, kyr6.lanes, kyr6.samples) == (256, 2, 128)
 
 
-@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
 def test_features_warp_geometry(n):
     """K1's float32 geometry: K2's layout of shared memory (the (G, 3) gate
     table with qubit q on bit q, each warp's staged angle rows), sized so
@@ -445,7 +445,7 @@ def test_features_warp_geometry(n):
     assert K.gate_table(c10).tolist() == [[g.kind, g.qubit, g.control] for g in c10.gates]
 
 
-@pytest.mark.parametrize("n", range(1, K.MAX_QUBITS + 1))
+@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
 def test_fused_states_geometry(n):
     """K4 runs K3's body, so its geometry is K3's whatever the bit map: the
     tables, C and each warp's staged rows (angles, phase-run members and,
@@ -475,10 +475,12 @@ def test_fused_states_geometry(n):
     ("states_from_angles", "float32 or torch.float64"),
     ("states_from_angles_fused", "float32")])
 def test_states_launch_guards(wrapper, dtypes):
-    """K1, K2 and K4 take contiguous (B, G) angles of their dtypes: anything
-    else raises before any launch (as it would on the card)."""
+    """K1, K2 and K4 take contiguous (B, G) angles of their dtypes and
+    qubit counts (K1 1-12, K2 and K4 1-10): anything else raises before any
+    launch (as it would on the card)."""
     c = _circuit("chebyshev", 3, 1)
     fn = getattr(K, wrapper)
+    most = K.MAX_QUBITS["K1" if wrapper == "pauli_features_from_angles" else "K2"]
     with mock.patch.object(K, "_is_cuda", lambda t: True):
         with pytest.raises(NotImplementedError, match=dtypes + " angles"):
             fn(c, torch.zeros((4, c.num_gates), dtype=torch.float16))
@@ -486,8 +488,8 @@ def test_states_launch_guards(wrapper, dtypes):
             fn(c, torch.zeros((4, c.num_gates + 1)))
         with pytest.raises(ValueError, match="contiguous"):
             fn(c, torch.zeros((c.num_gates, 4)).t())
-        with pytest.raises(ValueError, match="1 to 10 qubits"):
-            big = _circuit("chebyshev", 11, 1)
+        with pytest.raises(ValueError, match=f"1 to {most} qubits"):
+            big = _circuit("chebyshev", most + 1, 1)
             fn(big, torch.zeros((1, big.num_gates)))
     assert K.launch_counts() == dict.fromkeys(K.launch_counts(), 0)
 
