@@ -1,0 +1,9 @@
+"""idle_share.posterior: the share of the traced window in which no operation
+ran on the device, %: 1 - the union of the kernels' intervals / the
+window."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.kernels:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
