@@ -18,7 +18,9 @@ Flags that reach what the port does not have fail before any work:
 11), ``--gp-dtype mixed`` / ``--cv-dtype mixed`` (the TPU's emulated-float64
 solver), and ``--regularization`` on the CG route (the low-rank eigenvalue
 clip, Queue 1 item 8). ``--profile-dir`` writes a ``torch.profiler`` trace
-of the training loop.
+of each stage (loading, training, each prediction, ...), the program's
+spans (``tracing``) on a row of their own above the operators and kernels
+they ran.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from . import tracing
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -192,9 +196,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="dtype for the per-agent NLL/gradient linalg "
                              "(auto = float64; 'mixed' is not ported)")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="write a torch.profiler trace of the training loop "
-                             "into this directory (train_trace.json, Chrome "
-                             "trace format)")
+                        help="write a torch.profiler trace of each stage into "
+                             "this directory (load_trace.json, train_trace.json, "
+                             "predict_test_trace.json, ...; Chrome trace format, "
+                             "the program's spans on a row of their own)")
     parser.add_argument("--verbose-agents", action="store_true",
                         help="reference-style per-agent NLL component and "
                              "condition-number report every iteration")
@@ -243,19 +248,62 @@ def _json_sanitize(obj):
 
 class StageClock:
     """Wall seconds of a run's stages, each read after the device has
-    finished the stage's work."""
+    finished the stage's work: the seconds of a ``cli.<stage>`` span.
 
-    def __init__(self, device: torch.device):
+    With ``profile_dir``, each stage runs under ``torch.profiler``; its
+    trace, with the spans the stage recorded on a row of their own, goes to
+    ``<profile_dir>/<stage>_trace.json`` (``<stage>_<n>_trace.json`` for
+    the stage's n-th run from the second on)."""
+
+    def __init__(self, device: torch.device, profile_dir: Optional[str] = None, log=print):
         self.device = device
+        self.profile_dir = profile_dir
+        self.log = log
         self.seconds: Dict[str, float] = {}
+        self.runs: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def __call__(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
+        prof = None
+        with contextlib.ExitStack() as stack:
+            if self.profile_dir:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if self.device.type == "cuda":
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                tracing.clear()  # the trace gets this stage's spans alone
+                prof = stack.enter_context(torch.profiler.profile(activities=activities))
+            with tracing.span(f"cli.{name}") as span:
+                yield
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        self.seconds[name] = self.seconds.get(name, 0.0) + span.elapsed
+        n = self.runs[name] = self.runs.get(name, 0) + 1
+        if prof is not None:
+            os.makedirs(self.profile_dir, exist_ok=True)
+            trace = os.path.join(self.profile_dir,
+                                 f"{name}_trace.json" if n == 1 else f"{name}_{n}_trace.json")
+            prof.export_chrome_trace(trace)
+            add_spans_to_trace(trace, tracing.spans())
+            self.log(f"Profiler trace written to {trace}")
+
+
+def add_spans_to_trace(path: str, spans) -> None:
+    """Append ``spans`` (``tracing.Span``) to the Chrome trace at ``path`` as
+    complete events on a row of their own, on the trace's timeline."""
+    with open(path) as f:
+        trace = json.load(f)
+    # Kineto writes "ts" in us from "baseTimeNanoseconds" (from the Unix
+    # epoch where it has no such key); a span's times are Unix-epoch ns
+    base = trace.get("baseTimeNanoseconds", 0)
+    pid, tid = os.getpid(), 0  # no thread of the process has id 0
+    events = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+               "args": {"name": "program spans"}}]
+    events += [{"ph": "X", "name": s.name, "cat": "span", "pid": pid, "tid": tid,
+                "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3}
+               for s in spans if s.end_ns is not None]
+    trace["traceEvents"].extend(events)
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def _host(x) -> np.ndarray:
@@ -319,7 +367,7 @@ def run(argv=None) -> Tuple[Optional[dict], Dict[str, float]]:
     if not args.no_plot:
         plotting.pyplot()  # no matplotlib: fail now, naming --no-plot
     log = (lambda *a, **k: None) if args.quiet else print
-    stage = StageClock(dev)
+    stage = StageClock(dev, args.profile_dir, log)
 
     np.random.seed(args.seed)
     outer_kernel_params = assemble_outer_kernel_params(args)
@@ -443,23 +491,12 @@ def run(argv=None) -> Tuple[Optional[dict], Dict[str, float]]:
     log(f"Encoding circuit parameters: {spec.num_parameters}")
 
     # --- train ---------------------------------------------------------------
-    profiler = contextlib.nullcontext()
-    if args.profile_dir:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        profiler = torch.profiler.profile(activities=activities)
-    with stage("train"), profiler as prof:
+    with stage("train"):
         res = train(spec, splits, X_train, Y_train, cfg,
                     ground_truth_params=ground_truth_params,
                     resume_from=args.resume_from, device=dev)
     stage.seconds["backfill"] = res.cond_backfill_time or 0.0
     stage.seconds["train"] -= stage.seconds["backfill"]
-    if args.profile_dir:
-        os.makedirs(args.profile_dir, exist_ok=True)
-        trace = os.path.join(args.profile_dir, "train_trace.json")
-        prof.export_chrome_trace(trace)
-        log(f"Profiler trace written to {trace}")
 
     hyperparams = res.z_best_cv if res.z_best_cv is not None else res.z
     # post-training narrative (main.py:2786-3094)

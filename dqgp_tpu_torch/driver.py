@@ -43,7 +43,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +50,7 @@ import torch
 
 from . import config
 from . import manifold as M
+from . import tracing
 from .models.gp.cv import (
     FoldIndexBuffers,
     aggregate_cv_scores,
@@ -217,9 +217,11 @@ def host_condition_numbers(
           for X_i, _ in agent_data_splits]
     for s in range(0, Z.shape[0], step):
         for a, X_i in enumerate(Xs):
-            w = torch.abs(torch.linalg.eigvalsh(grams_at_rows(spec, X_i, Zw[s:s + step])))
-            cond = torch.amax(w, dim=-1) / torch.clamp(torch.amin(w, dim=-1), min=tiny)
-            out[s:s + step, a] = cond.cpu().numpy()
+            with tracing.span("driver.backfill_chunk"):
+                w = torch.abs(torch.linalg.eigvalsh(grams_at_rows(spec, X_i, Zw[s:s + step])))
+                cond = torch.amax(w, dim=-1) / torch.clamp(torch.amin(w, dim=-1), min=tiny)
+                with tracing.span("sync.backfill"):
+                    out[s:s + step, a] = cond.cpu().numpy()
     return out
 
 
@@ -310,7 +312,7 @@ class _RowLayout:
 
 class _ChunkRunner:
     """``k`` iterations of step + CV per dispatch; their packed rows land in
-    one (k, width) float64 buffer that the host fetches once.
+    one (k, width) float64 buffer that the caller fetches once.
 
     ``iteration(theta, psi, j)`` runs iteration j of the chunk and returns
     (step output, packed row). With ``capture`` (chain_iters > 1 on CUDA) the
@@ -324,8 +326,9 @@ class _ChunkRunner:
 
     ``stats``: the graph's replays, the launches that one replay makes of
     each hand kernel (the wrappers count Python calls, so they count the
-    capture and no replay), and the peak bytes allocated during capture
-    (the graph pool's peak)."""
+    capture and no replay), the seconds of the first chunk's warm-up and
+    capture (the ``driver.capture`` span's), and the peak bytes allocated
+    during capture (the graph pool's peak)."""
 
     def __init__(self, iteration, k: int, width: int, device: torch.device,
                  capture: bool):
@@ -343,42 +346,44 @@ class _ChunkRunner:
 
     def _capture(self, theta, psi) -> None:
         dev = self.device
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.time()
-        with torch.cuda.stream(stream):
-            self.iteration(theta, psi, 0)   # warm-up, discarded
-        torch.cuda.synchronize(dev)
-        t1 = time.time()
-        self.theta_in, self.psi_in = theta.clone(), psi.clone()
-        self.rows = torch.empty((self.k, self.width), dtype=torch.float64, device=dev)
-        before = cuda_circuit.launch_counts()
-        base = torch.cuda.memory_allocated(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.theta_out, self.psi_out = self._body(self.theta_in, self.psi_in, self.rows)
-        torch.cuda.synchronize(dev)
+        with tracing.span("driver.capture") as span:
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self.iteration(theta, psi, 0)   # warm-up, discarded
+            torch.cuda.synchronize(dev)
+            warmup_s = span.elapsed
+            self.theta_in, self.psi_in = theta.clone(), psi.clone()
+            self.rows = torch.empty((self.k, self.width), dtype=torch.float64, device=dev)
+            before = cuda_circuit.launch_counts()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.theta_out, self.psi_out = self._body(self.theta_in, self.psi_in, self.rows)
+            torch.cuda.synchronize(dev)
         after = cuda_circuit.launch_counts()
         self.stats.update(
-            warmup_s=t1 - t0, capture_s=time.time() - t1,
+            warmup_s=warmup_s, capture_s=span.elapsed - warmup_s,
             launches_per_replay={n: after[n] - before[n] for n in after if after[n] != before[n]},
             graph_pool_peak_bytes=torch.cuda.max_memory_allocated(dev) - base)
 
     def run(self, theta, psi):
-        """(rows (k, width) host float64, theta and psi after the k-th row)."""
+        """(rows (k, width) float64 on the device, theta and psi after the
+        k-th row); the caller fetches the rows. A captured chunk's rows are
+        the graph's own buffer, which the next replay overwrites: fetch
+        them before the next ``run``."""
         if not self.capture:
             rows = torch.empty((self.k, self.width), dtype=torch.float64, device=self.device)
             theta, psi = self._body(theta, psi, rows)
-            return rows.cpu().numpy(), theta, psi
+            return rows, theta, psi
         if self.graph is None:
             self._capture(theta, psi)
         self.theta_in.copy_(theta)
         self.psi_in.copy_(psi)
         self.graph.replay()
         self.stats["replays"] += 1
-        rows = self.rows.cpu().numpy()   # the chunk's one fetch
-        return rows, self.theta_out.clone(), self.psi_out.clone()
+        return self.rows, self.theta_out.clone(), self.psi_out.clone()
 
 
 def _to_np(t: torch.Tensor) -> np.ndarray:
@@ -397,6 +402,7 @@ def train(
     device,
 ) -> TrainResult:
     """Run the distributed Riemannian-ADMM optimization on ``device``."""
+    tracing.new_unit()
     device = torch.device(device)
     config.set_precision_policy()
     cfg = check_config(cfg)
@@ -414,13 +420,6 @@ def train(
     _warn_device_cond_floor(cond_mode, device)
     cond_pending: List[Tuple[int, np.ndarray]] = []  # (history index, z row)
 
-    batch = make_agent_batch(agent_data_splits, device)
-    step_kw = dict(rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
-                   shift_value=cfg.shift_value, parity_round=cfg.parity_round,
-                   compute_cond=cond_mode == "device", gp_dtype=cfg.gp_dtype,
-                   grad_method=cfg.grad_method)
-    step = make_admm_step(spec, psd_fallback=cfg.psd_fallback, **step_kw)
-
     if resume_from:
         ck = load_checkpoint(resume_from)
         theta, psi, z = ck["theta"], ck["psi"], ck["z"]
@@ -432,32 +431,50 @@ def train(
         theta, psi, z = init_admm_state(n_agents, P, cfg.seed, cfg.rho, cfg.parity_round)
         start_iter = 0
         cv_best, z_best_cv, patience_counter = float("inf"), None, 0
-    theta = torch.as_tensor(theta, dtype=torch.float64, device=device)
-    psi = torch.as_tensor(psi, dtype=torch.float64, device=device)
 
-    X_cv, Y_cv = np.asarray(X_train), np.asarray(Y_train)
-    if cfg.run_cv and cfg.cv_max_samples and len(X_cv) > cfg.cv_max_samples:
-        # the dense fold Grams are O(n^2): model-select on a seeded subsample,
-        # drawn as dqgp_tpu/driver.py:521-529 draws it
-        sel = np.random.RandomState(cfg.seed).choice(
-            len(X_cv), cfg.cv_max_samples, replace=False)
-        X_cv, Y_cv = X_cv[sel], Y_cv[sel]
-        log(f"CV model selection on a {cfg.cv_max_samples}-sample subset "
-            f"of {len(X_train)} training rows")
-    X_t = torch.as_tensor(X_cv, device=device)
-    Y_t = torch.as_tensor(Y_cv, device=device)
-    folds = FoldIndexBuffers(len(X_cv), cfg.cv_folds, chain_k, device) if cfg.run_cv else None
-    layout = _RowLayout(n_agents, P, 3 * cfg.cv_folds if cfg.run_cv else 0)
+    # the run's one-time start: the agent batch, the steps, the uploads, the
+    # CV subsample and the fold buffers
+    with tracing.span("driver.start"):
+        batch = make_agent_batch(agent_data_splits, device)
+        step_kw = dict(rho=cfg.rho, L=cfg.L, noise_std=cfg.noise_std,
+                       shift_value=cfg.shift_value, parity_round=cfg.parity_round,
+                       compute_cond=cond_mode == "device", gp_dtype=cfg.gp_dtype,
+                       grad_method=cfg.grad_method)
+        step = make_admm_step(spec, psd_fallback=cfg.psd_fallback, **step_kw)
+
+        # chain_k > 1: the chunk's step flags failed factorizations (NaN), and
+        # the eager step (full fallback) re-runs a flagged row; one iteration a
+        # chunk runs the eager step itself
+        flags = chain_k > 1
+        chunk_step = make_admm_step(spec, psd_fallback=False, **step_kw) if flags else step
+        theta = torch.as_tensor(theta, dtype=torch.float64, device=device)
+        psi = torch.as_tensor(psi, dtype=torch.float64, device=device)
+
+        X_cv, Y_cv = np.asarray(X_train), np.asarray(Y_train)
+        if cfg.run_cv and cfg.cv_max_samples and len(X_cv) > cfg.cv_max_samples:
+            # the dense fold Grams are O(n^2): model-select on a seeded subsample,
+            # drawn as dqgp_tpu/driver.py:521-529 draws it
+            sel = np.random.RandomState(cfg.seed).choice(
+                len(X_cv), cfg.cv_max_samples, replace=False)
+            X_cv, Y_cv = X_cv[sel], Y_cv[sel]
+            log(f"CV model selection on a {cfg.cv_max_samples}-sample subset "
+                f"of {len(X_train)} training rows")
+        X_t = torch.as_tensor(X_cv, device=device)
+        Y_t = torch.as_tensor(Y_cv, device=device)
+        folds = FoldIndexBuffers(len(X_cv), cfg.cv_folds, chain_k, device) if cfg.run_cv else None
+        layout = _RowLayout(n_agents, P, 3 * cfg.cv_folds if cfg.run_cv else 0)
 
     def make_iteration(step_fn):
         """Step + CV pass ``j`` of the fold buffer -> (step output, row)."""
         def iteration(theta, psi, j):
-            out = step_fn(theta, psi, batch)
+            with tracing.span("consensus.step"):
+                out = step_fn(theta, psi, batch)
             scores = None
             if cfg.run_cv:
-                scores = cv_fold_scores_impl(spec, X_t, Y_t, out.z, *folds.folds(j),
-                                             noise_std=float(cfg.noise_std),
-                                             cv_dtype=cfg.cv_dtype)
+                with tracing.span("cv.scores"):
+                    scores = cv_fold_scores_impl(spec, X_t, Y_t, out.z, *folds.folds(j),
+                                                 noise_std=float(cfg.noise_std),
+                                                 cv_dtype=cfg.cv_dtype)
             return out, layout.pack(out, scores)
         return iteration
 
@@ -584,59 +601,63 @@ def train(
             return "max_iter"
         return None
 
-    # chain_k > 1: the chunk's step flags failed factorizations (NaN), and
-    # the eager step (full fallback) re-runs a flagged row; one iteration a
-    # chunk runs the eager step itself
-    flags = chain_k > 1
-    chunk_step = make_admm_step(spec, psd_fallback=False, **step_kw) if flags else step
     chunks = _ChunkRunner(make_iteration(chunk_step), chain_k, layout.width, device,
                           capture=flags and device.type == "cuda")
 
     it = start_iter
-    t0 = time.time()
+    total_time = 0.0
     while True:
-        chunk_start = time.time()
-        if cfg.run_cv:  # seed + iter (main.py:2665), one upload a chunk
-            folds.fill([cfg.seed + it + 1 + j for j in range(chain_k)])
-        rows, th_next, ps_next = chunks.run(theta, psi)
-        t_row = (time.time() - chunk_start) / chain_k
-        stop, redo = None, False
-        for j in range(chain_k):
-            z_row, sec, fold_scores, th_row, ps_row = layout.unpack(rows[j])
-            if flags and cfg.psd_fallback and not np.all(np.isfinite(sec[1])):
-                # A flagged agent poisons the later rows (NaN theta/psi):
-                # re-run THIS iteration's step with the full fallback from
-                # the pre-row state, then restart chunking from there. z and
-                # the row's CV scores stand (z reads only the old state).
-                redo = True
-                if j > 0:
-                    _, _, _, th_prev, ps_prev = layout.unpack(rows[j - 1])
-                    theta = torch.as_tensor(th_prev, device=device)
-                    psi = torch.as_tensor(ps_prev, device=device)
-                log("  non-finite agent NLL in the chunk's step; re-running this "
-                    "iteration with the eigh-pinv fallback")
-                out = step(theta, psi, batch)
-                kept = None if fold_scores is None else torch.as_tensor(fold_scores,
-                                                                         device=device)
-                z_row, sec, fold_scores, th_row, ps_row = layout.unpack(
-                    _to_np(layout.pack(out, kept)))
-                th_next, ps_next = out.theta, out.psi
-            it += 1
-            z = z_row
-            stop = record_iteration(it, z_row, sec, fold_scores, t_row, th_row, ps_row,
-                                    solver=f"{cfg.gp_dtype}-rescue" if redo else None)
-            if stop is not None or redo:
-                break
-        theta, psi = th_next, ps_next
+        with tracing.span("driver.iteration") as chunk:
+            with tracing.span("driver.dispatch"):
+                if cfg.run_cv:  # seed + iter (main.py:2665), one upload a chunk
+                    folds.fill([cfg.seed + it + 1 + j for j in range(chain_k)])
+                rows, th_next, ps_next = chunks.run(theta, psi)
+            with tracing.span("sync.fetch"):
+                rows = rows.cpu().numpy()   # the chunk's one fetch
+            t_row = chunk.elapsed / chain_k
+            stop, redo = None, False
+            for j in range(chain_k):
+                z_row, sec, fold_scores, th_row, ps_row = layout.unpack(rows[j])
+                if flags and cfg.psd_fallback and not np.all(np.isfinite(sec[1])):
+                    # A flagged agent poisons the later rows (NaN theta/psi):
+                    # re-run THIS iteration's step with the full fallback from
+                    # the pre-row state, then restart chunking from there. z and
+                    # the row's CV scores stand (z reads only the old state).
+                    redo = True
+                    if j > 0:
+                        _, _, _, th_prev, ps_prev = layout.unpack(rows[j - 1])
+                        theta = torch.as_tensor(th_prev, device=device)
+                        psi = torch.as_tensor(ps_prev, device=device)
+                    log("  non-finite agent NLL in the chunk's step; re-running this "
+                        "iteration with the eigh-pinv fallback")
+                    with tracing.span("driver.dispatch"):
+                        out = step(theta, psi, batch)
+                        kept = None if fold_scores is None else torch.as_tensor(
+                            fold_scores, device=device)
+                        row = layout.pack(out, kept)
+                    with tracing.span("sync.fetch"):
+                        row = _to_np(row)
+                    z_row, sec, fold_scores, th_row, ps_row = layout.unpack(row)
+                    th_next, ps_next = out.theta, out.psi
+                it += 1
+                z = z_row
+                with tracing.span("driver.record"):
+                    stop = record_iteration(
+                        it, z_row, sec, fold_scores, t_row, th_row, ps_row,
+                        solver=f"{cfg.gp_dtype}-rescue" if redo else None)
+                if stop is not None or redo:
+                    break
+            theta, psi = th_next, ps_next
+            if stop is not None:
+                # a stop inside the chunk: the rows after it are discarded
+                theta, psi = th_row, ps_row
+                converged_by = stop
+                if stop in ("cv_patience", "max_iter") and z_best_cv is not None:
+                    z = z_best_cv.copy()
+        total_time += chunk.elapsed
         if stop is not None:
-            # a stop inside the chunk: the rows after it are discarded
-            theta, psi = th_row, ps_row
-            converged_by = stop
-            if stop in ("cv_patience", "max_iter") and z_best_cv is not None:
-                z = z_best_cv.copy()
             break
 
-    total_time = time.time() - t0
     log(f"ADMM done ({converged_by}) after {it} iterations in {total_time:.2f}s "
         f"({total_time / max(it - start_iter, 1):.3f}s/iter)")
 
@@ -645,13 +666,13 @@ def train(
         # host cond mode: one batched float64 pass over every recorded
         # iteration, then backfill the history rows (reporting-only values;
         # nothing in the training control flow reads them)
-        t_cond = time.time()
-        conds_all = host_condition_numbers(spec, agent_data_splits,
-                                           np.stack([zr for _, zr in cond_pending]),
-                                           device=device)
-        for (hist_idx, _), crow in zip(cond_pending, conds_all):
-            nll_history[hist_idx]["condition_numbers"] = crow.tolist()
-        cond_time = time.time() - t_cond
+        with tracing.span("driver.backfill") as backfill:
+            conds_all = host_condition_numbers(spec, agent_data_splits,
+                                               np.stack([zr for _, zr in cond_pending]),
+                                               device=device)
+            for (hist_idx, _), crow in zip(cond_pending, conds_all):
+                nll_history[hist_idx]["condition_numbers"] = crow.tolist()
+        cond_time = backfill.elapsed
         log(f"condition numbers (exact f64, on {device.type}) for {len(cond_pending)} "
             f"iterations in {cond_time:.2f}s")
 

@@ -15,7 +15,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ... import config
+from ... import config, tracing
 from ..kernels.quantum_kernel import (
     QuantumKernelSpec,
     gram_from_features,
@@ -229,9 +229,11 @@ def k_fold_cross_validation_consensus(
             torch.as_tensor(consensus_params, dtype=torch.float64, device=dev),
             *folds)
     kw = dict(noise_std=float(noise_std), jitter=float(jitter))
-    nlpds = None
+    flagged = rescue
     if not rescue:
         nlpds, r2s, rmses = cv_fold_scores_impl(*args, cv_dtype=cv_dtype, **kw)
-    if nlpds is None or not bool(torch.all(torch.isfinite(nlpds))):
+        with tracing.span("sync.cv_check"):
+            flagged = not bool(torch.all(torch.isfinite(nlpds)))
+    if flagged:
         nlpds, r2s, rmses = cv_fold_scores_impl(*args, cv_dtype="float64", rescue=True, **kw)
     return aggregate_cv_scores(nlpds, r2s, rmses, k_folds)

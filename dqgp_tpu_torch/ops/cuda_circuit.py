@@ -66,6 +66,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from . import _build
 from .circuit import Circuit
 from .fusion import (
@@ -142,7 +143,9 @@ def _is_cuda(t: torch.Tensor) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def _library(source: str = SOURCE) -> ctypes.CDLL:
-    lib = _build.load(source)
+    # a process's first use of a source: its build, or the reuse of a build
+    with tracing.span(f"cuda_circuit.load:{source}"):
+        lib = _build.load(source)
     for name, argtypes in _SIGNATURES[source].items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -13,6 +13,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
+
 
 class SolveResult(NamedTuple):
     """Result of a PSD solve; ``L`` is the identity where ``chol_ok`` is False."""
@@ -69,7 +71,9 @@ def solve_psd_with_fallback(C: torch.Tensor, y: torch.Tensor, fallback: bool = T
 
     failed = ~chol_ok
     if fallback:
-        if bool(failed.any()):
+        with tracing.span("sync.rescue_check"):
+            rescue = bool(failed.any())
+        if rescue:
             # rescue only the batch members whose factorization failed
             Ci, Ciy, ld = _pinv_rescue(C[failed], y[failed])
             C_inv, C_inv_y, logdet = C_inv.clone(), C_inv_y.clone(), logdet.clone()

@@ -31,7 +31,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from .. import config
+from .. import config, tracing
 from ..models.gp.metrics import outer_diag
 from ..models.kernels.quantum_kernel import (
     QuantumKernelSpec,
@@ -184,17 +184,18 @@ def gram_matvec(
     # the tile width is clamped to N rounded up to a multiple of 256, as the
     # JAX package clamps it
     block = min(block, max(256, -(-F.shape[0] // 256) * 256))
-    Fp, n_pad = _pad_rows(F, block)
-    mp, _ = _pad_rows(row_mask[:, None], block)
-    vp, _ = _pad_rows(v, block)
-    out = torch.zeros((n_pad, v.shape[-1]), dtype=v.dtype, device=v.device)
-    for s in range(0, n_pad, block):
-        # K[:, j_block]: (N, block), one outer-kernel tile per step
-        K_cols = gram_from_features(spec, Fp, Fp[s:s + block])
-        K_cols = K_cols * (mp * mp[s:s + block].transpose(0, 1))
-        out += K_cols @ vp[s:s + block]
-        del K_cols
-    return out[: F.shape[0]]
+    with tracing.span("blocked.gram_matvec"):
+        Fp, n_pad = _pad_rows(F, block)
+        mp, _ = _pad_rows(row_mask[:, None], block)
+        vp, _ = _pad_rows(v, block)
+        out = torch.zeros((n_pad, v.shape[-1]), dtype=v.dtype, device=v.device)
+        for s in range(0, n_pad, block):
+            # K[:, j_block]: (N, block), one outer-kernel tile per step
+            K_cols = gram_from_features(spec, Fp, Fp[s:s + block])
+            K_cols = K_cols * (mp * mp[s:s + block].transpose(0, 1))
+            out += K_cols @ vp[s:s + block]
+            del K_cols
+        return out[: F.shape[0]]
 
 
 class CGResult(NamedTuple):
@@ -233,25 +234,30 @@ def cg_solve(
     b_norm = torch.sqrt(colsum(b * b)) + 1e-30
 
     def rel_residual(r) -> float:
-        return float(torch.max(torch.sqrt(colsum(r * r)) / b_norm))
+        with tracing.span("sync.cg_residual"):
+            return float(torch.max(torch.sqrt(colsum(r * r)) / b_norm))
 
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
     p = z
     it = 0
-    while it < maxiter and rel_residual(r) > tol:
-        Ap = matvec(p)
-        rz = colsum(r * z)
-        alpha = rz / (colsum(p * Ap) + 1e-30)
-        x = x + alpha * p
-        r_new = r - alpha * Ap
-        z_new = precond(r_new)
-        beta = colsum(r_new * z_new) / (rz + 1e-30)
-        p = z_new + beta * p
-        r, z = r_new, z_new
-        it += 1
-    return CGResult(x, it, rel_residual(r))
+    residual = rel_residual(r)
+    while it < maxiter and residual > tol:
+        # an iteration ends in the host's read of its residual
+        with tracing.span("blocked.cg_iteration"):
+            Ap = matvec(p)
+            rz = colsum(r * z)
+            alpha = rz / (colsum(p * Ap) + 1e-30)
+            x = x + alpha * p
+            r_new = r - alpha * Ap
+            z_new = precond(r_new)
+            beta = colsum(r_new * z_new) / (rz + 1e-30)
+            p = z_new + beta * p
+            r, z = r_new, z_new
+            it += 1
+            residual = rel_residual(r)
+    return CGResult(x, it, residual)
 
 
 def pivoted_cholesky(
@@ -324,9 +330,17 @@ def _cg_setup(
     n = F_train.shape[0]
     mask = torch.ones((n,), dtype=dtype, device=F_train.device)
 
-    reg = None
-    if spec.regularization is not None:
-        reg = make_lowrank_regularizer(spec, F_train, block=block, dtype=dtype)
+    with tracing.span("blocked.setup"):
+        reg = None
+        if spec.regularization is not None:
+            reg = make_lowrank_regularizer(spec, F_train, block=block, dtype=dtype)
+        if precond_rank > 0:
+            Lp = pivoted_cholesky(spec, F_train, min(precond_rank, n))
+            precond = woodbury_preconditioner(Lp.to(dtype), sigma2)
+        else:
+            precond = _k_diag(spec, F_train, dtype) + sigma2
+            if reg is not None:
+                precond = precond + reg.diag_correction()
 
     def A(v):
         Kv = gram_matvec(spec, F_train, v, mask, block)
@@ -334,15 +348,8 @@ def _cg_setup(
             Kv = reg.matvec(Kv, v)
         return Kv + sigma2 * v
 
-    if precond_rank > 0:
-        Lp = pivoted_cholesky(spec, F_train, min(precond_rank, n))
-        precond = woodbury_preconditioner(Lp.to(dtype), sigma2)
-    else:
-        precond = _k_diag(spec, F_train, dtype) + sigma2
-        if reg is not None:
-            precond = precond + reg.diag_correction()
-
-    res = cg_solve(A, y_train[:, None].to(dtype), cg_tol, cg_maxiter, precond)
+    with tracing.span("blocked.alpha_solve"):
+        res = cg_solve(A, y_train[:, None].to(dtype), cg_tol, cg_maxiter, precond)
     return A, precond, res
 
 
@@ -367,6 +374,7 @@ def gp_posterior_large(
     ``test_chunk`` at a time, so the CG state stays (N, test_chunk).
 
     Returns (mean, var, res) with ``res`` the alpha solve's CGResult."""
+    tracing.new_unit()
     dtype = y_train.dtype
     sigma2 = noise_std**2 + jitter
     A, precond, res = _cg_setup(spec, F_train, y_train, sigma2, block,
@@ -378,7 +386,8 @@ def gp_posterior_large(
         F_c = F_test[s:s + test_chunk]
         K_ts = gram_from_features(spec, F_train, F_c).to(dtype)  # (N, m)
         means.append(K_ts.transpose(0, 1) @ alpha)
-        sol = cg_solve(A, K_ts, cg_tol, cg_maxiter, precond)
+        with tracing.span("blocked.var_solve"):
+            sol = cg_solve(A, K_ts, cg_tol, cg_maxiter, precond)
         vars_.append(torch.clamp(
             _k_diag(spec, F_c, dtype) - torch.sum(K_ts * sol.x, dim=0), min=1e-10))
     return torch.cat(means), torch.cat(vars_), res
@@ -416,6 +425,7 @@ def make_cg_predictor(
     Non-converged solves warn: the alpha solve at set-up, the variance
     solves once per predict() call. ``predict.alpha_result`` holds the alpha
     solve's CGResult, ``predict.variance_results`` the last call's."""
+    tracing.new_unit()  # the set-up's spans and every predict() call's
     dev = config.resolve_device(device)
     dtype = config.GP_DTYPE
     if spec.kernel_type == "fidelity":
@@ -451,7 +461,8 @@ def make_cg_predictor(
             F_c = F_ev[s:s + test_chunk]
             K_ts = gram_from_features(spec, F_tr, F_c).to(dtype)  # (N, m)
             means.append(K_ts.transpose(0, 1) @ alpha)
-            sol = cg_solve(A, K_ts, cg_tol, cg_maxiter, precond)
+            with tracing.span("blocked.var_solve"):
+                sol = cg_solve(A, K_ts, cg_tol, cg_maxiter, precond)
             sols.append(sol._replace(x=None))
             vars_.append(torch.clamp(
                 _k_diag(spec, F_c, dtype) - torch.sum(K_ts * sol.x, dim=0), min=1e-10))
