@@ -393,6 +393,9 @@ DRIVER_MODES_FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_port_drive
 COND_ITERS, COND_FID_ITERS = 5, 2    # phase 13: cond_mode device / host / off
 COND_RTOL = 1e-6                     # float64 Grams from complex128 states on both sides
 COND_EXACT_BELOW = 1e8               # above it, the reference's bucket must agree
+EIG_FIT_ROWS = 100                   # the backfill of a 100-iteration fit (the benchmark's)
+EIG_REPS = 5
+EIG_MAX_RTOL = 1e-10                 # max|w|, kernel vs eigvalsh on one float64 Gram
 CHAIN_K = 5                          # phase 14: iterations a CUDA-graph replay
 CHAIN_FID_ITERS = 5
 CHAIN_STOP_ITERS, CHAIN_STOP_K = 7, 3  # a stop inside the third chunk
@@ -553,6 +556,34 @@ def backfill_launches(iters: int, agents: int) -> int:
     """Float64 feature launches of the host condition-number backfill
     (``driver.host_condition_numbers``): one an agent and 16-row chunk."""
     return agents * -(-iters // 16)
+
+
+def backfill_eig_counts(iters: int, sizes) -> dict:
+    """The batched eigenvalue kernel's counts (``ops/cuda_eig.py``) in the
+    host backfill of ``iters`` z rows over agents of ``sizes`` rows: one
+    launch a 16-row chunk for every agent whose Gram it takes (at most its
+    limit of rows), each of those Grams counted, and the other agents' Grams
+    through eigvalsh."""
+    from dqgp_tpu_torch.ops.cuda_eig import MAX_N
+
+    took = sum(n <= MAX_N for n in sizes)
+    return {"eig": -(-iters // 16) if took else 0, "eig_grams": iters * took,
+            "eig_eigvalsh_grams": iters * (len(sizes) - took)}
+
+
+def counts_hold(counts: dict, want: dict) -> bool:
+    """Every count of ``want`` in ``counts``."""
+    return all(counts[k] == v for k, v in want.items())
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def agent_rows(log_path: str) -> list:
+    """Each agent's training rows, as the CLI's log lists them."""
+    with open(log_path) as f:
+        return [int(n) for n in re.findall(r"^\s*Agent \d+: (\d+) samples$", f.read(), re.M)]
 
 
 def check(ok: bool, msg: str) -> None:
@@ -960,10 +991,12 @@ def northstar_gate(dev) -> dict:
     counts = K.launch_counts()
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     f64 = backfill_launches(GATE_ITERS, N_AGENTS)
+    eig = backfill_eig_counts(GATE_ITERS, [len(x) for x, _ in splits])
     check(counts["K1"] == 2 * GATE_ITERS + 2 + rescores and counts["K1_f64"] == f64
-          and sum(counts.values()) == counts["K1"] + f64,
+          and counts_hold(counts, eig)
+          and sum(counts.values()) == counts["K1"] + f64 + sum(eig.values()),
           f"gate launches {counts}: want K1 = 2*{GATE_ITERS} + 2 + {rescores}, K1_f64 = {f64} "
-          f"(the condition-number backfill) and no other kernel")
+          f"and {eig} (the condition-number backfill) and no other kernel")
     check(res.iterations == GATE_ITERS and res.converged_by == ref["converged_by"],
           f"gate run stopped {res.converged_by}@{res.iterations}")
     z = np.array([h["consensus_params"] for h in res.cv_history])
@@ -1595,10 +1628,11 @@ def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     want_k3 = C7_ITERS * (1 + P) + C7_ITERS + rescores
     want_f64 = backfill_launches(C7_ITERS, C7_AGENTS)
-    check(counts["K1_f64"] == want_f64 and counts["K3"] == want_k3
-          and sum(counts.values()) == want_f64 + want_k3,
+    eig = backfill_eig_counts(C7_ITERS, [len(x) for x, _ in splits])
+    check(counts["K1_f64"] == want_f64 and counts["K3"] == want_k3 and counts_hold(counts, eig)
+          and sum(counts.values()) == want_f64 + want_k3 + sum(eig.values()),
           f"config #7 with cond launches {counts}: want K3 = {want_k3} in training and "
-          f"K1_f64 = {want_f64} in the backfill, no other kernel")
+          f"K1_f64 = {want_f64} and {eig} in the backfill, no other kernel")
     host = np.array([h["condition_numbers"] for h in res.nll_history])
     check(host.shape == (C7_ITERS, C7_AGENTS) and not bool(np.isnan(host).any()),
           f"the backfill left a condition number out: {host.shape}")
@@ -1612,7 +1646,9 @@ def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
         plain = host_condition_numbers(spec, splits[:C7_COND_HELD], rows, device=dev)
     finally:
         QK.pauli_features_from_angles = saved
-    check(K.launch_counts() == counts, "the plain backfill launched a kernel")
+    plain_eig = backfill_eig_counts(len(rows), [len(x) for x, _ in splits[:C7_COND_HELD]])
+    check(K.launch_counts() == {k: v + plain_eig.get(k, 0) for k, v in counts.items()},
+          f"the plain backfill launched {K.launch_counts()}: want {counts} and {plain_eig} more")
     rel = hold_host_cond(host[:, :C7_COND_HELD], plain,
                          f"config #7's backfill vs the plain engine on {C7_COND_HELD} agents")
     print(f"phase 16 config #7 with condition numbers ({time.time() - t0:.2f} s) [{smi}]: "
@@ -1641,9 +1677,10 @@ def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
     total_ms = ev[0].elapsed_time(ev[1])
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     counts25 = K.launch_counts()
-    want25 = backfill_launches(C7_COND_ITERS, C7_AGENTS)
-    check(counts25 == {**dict.fromkeys(counts25, 0), "K1_f64": want25},
-          f"the 25-row backfill launched {counts25}: want K1_f64 = {want25} and nothing else")
+    want25 = {"K1_f64": backfill_launches(C7_COND_ITERS, C7_AGENTS),
+              **backfill_eig_counts(C7_COND_ITERS, [len(x) for x, _ in splits])}
+    check(counts25 == {**dict.fromkeys(counts25, 0), **want25},
+          f"the 25-row backfill launched {counts25}: want {want25} and nothing else")
     check(not bool(np.isnan(cond25).any()), "the 25-row backfill left a value out")
     # where its time goes, on the same chunks and agents again: the float64
     # features alone under the profiler (K1 f64's device time), then each
@@ -1795,9 +1832,15 @@ def cond_phase(dev, smi: str, rand_angles, fid) -> dict:
         for mode in ("host", "off"):
             runs_identical(runs["device"], runs[mode], f"{what} cond {mode} vs device")
         f64 = backfill_launches(iters, len(spl))
+        eig = backfill_eig_counts(iters, [len(x) for x, _ in spl])
         check(counts["host"][kernel + "_f64"] == f64
               and counts["device"][kernel + "_f64"] == counts["off"][kernel + "_f64"] == 0,
               f"{what}: float64 launches {counts}: want {f64} in the host backfill only")
+        # the eigenvalue kernel's counts, read from train()'s own backfill
+        check(counts_hold(counts["host"], eig)
+              and counts_hold(counts["device"], dict.fromkeys(eig, 0))
+              and counts_hold(counts["off"], dict.fromkeys(eig, 0)),
+              f"{what}: eigenvalue counts {counts}: want {eig} in the host backfill only")
         host = np.array([h["condition_numbers"] for h in runs["host"].nll_history])
         floors = np.array([h["condition_numbers"] for h in runs["device"].nll_history])
         check(not bool(np.isnan(host).any()) and bool(np.all(np.isnan(
@@ -1813,7 +1856,8 @@ def cond_phase(dev, smi: str, rand_angles, fid) -> dict:
         rel = hold_host_cond(got, ref[key]["cond"], what)
         print(f"phase 13 cond {what} ({time.time() - t0:.2f} s) [{smi}]: {iters} iterations "
               f"each with cond_mode device, host and off: one z trajectory, agent NLLs and CV "
-              f"identical; host backfill {len(spl)} {kernel}_f64 launches; at the JAX "
+              f"identical; host backfill {f64} {kernel}_f64 launches and, read from the run, "
+              f"{ {k: counts['host'][k] for k in eig} }; at the JAX "
               f"fixture's {len(rows)} z rows the backfill took {ev[0].elapsed_time(ev[1]):.2f} ms "
               f"and agrees with JAX's host_condition_numbers (worst rel dev below 1e12: "
               f"{rel:.2e}, bar {COND_RTOL} below {COND_EXACT_BELOW:.0e}, buckets above); the run's "
@@ -2254,12 +2298,13 @@ def autodiff_phase(dev, smi: str, rand_angles) -> dict:
     train_s = time.time() - t0
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     f64 = backfill_launches(AUTODIFF_ITERS, N_AGENTS)
+    eig = backfill_eig_counts(AUTODIFF_ITERS, [len(x) for x, _ in splits])
     check(counts["K1"] == 2 * AUTODIFF_ITERS + rescores and counts["K1_vjp"] == AUTODIFF_ITERS
-          and counts["K1_f64"] == f64
-          and sum(counts.values()) == counts["K1"] + counts["K1_vjp"] + f64,
+          and counts["K1_f64"] == f64 and counts_hold(counts, eig)
+          and sum(counts.values()) == counts["K1"] + counts["K1_vjp"] + f64 + sum(eig.values()),
           f"autodiff launches {counts}: want K1 = 2*{AUTODIFF_ITERS} + {rescores} (each step's "
-          f"Gram and CV pass), K1_vjp = {AUTODIFF_ITERS} (each step's backward) and K1_f64 = "
-          f"{f64}")
+          f"Gram and CV pass), K1_vjp = {AUTODIFF_ITERS} (each step's backward), K1_f64 = "
+          f"{f64} and {eig} (the backfill)")
     check((res.iterations, res.converged_by) == (ref["iterations"], ref["converged_by"]),
           f"autodiff run stopped {res.converged_by}@{res.iterations}")
     z = np.array([h["consensus_params"] for h in res.cv_history])
@@ -2611,18 +2656,20 @@ def cli_at_reference_z(split, ref, device) -> dict:
     return out
 
 
-def cli_launches_expected(name: str, summary) -> dict:
+def cli_launches_expected(name: str, summary, sizes) -> dict:
     """Each hand kernel's launches in run ``name``: the step and the CV pass
     an iteration (and a float64 CV re-score where one was flagged), two a
     predict (training and evaluated rows: test, train, and for run B the
     ground-truth parameters' test), one float64 an agent and 16 z rows in
-    the backfill, one float64 for run A's noise fit and for run B's dataset."""
+    the backfill, one float64 for run A's noise fit and for run B's dataset;
+    and the backfill's eigenvalue counts over agents of ``sizes`` rows."""
     iters = summary["iterations"]
     rescores = sum(h["solver"] == "float64-rescue" for h in summary["cv_history"])
     backfill = backfill_launches(iters, summary["config"]["n_agents"])
+    eig = nonzero(backfill_eig_counts(iters, sizes))
     if name == "A":
-        return {"K1": 2 * iters + 4 + rescores, "K1_f64": backfill + 1}
-    return {"K2": 2 * iters + 6 + rescores, "K2_f64": 1 + backfill}
+        return {"K1": 2 * iters + 4 + rescores, "K1_f64": backfill + 1, **eig}
+    return {"K2": 2 * iters + 6 + rescores, "K2_f64": 1 + backfill, **eig}
 
 
 def cli_phase(dev, smi: str) -> dict:
@@ -2655,7 +2702,10 @@ def cli_phase(dev, smi: str) -> dict:
                 summary, stages, split, wall = run_port_cli(
                     flags + ["--device", str(dev)], os.path.join(out_dir, f"run_{name}.log"))
             counts = {k: v for k, v in K.launch_counts().items() if v}
-            want = cli_launches_expected(name, summary)
+            sizes = agent_rows(os.path.join(out_dir, f"run_{name}.log"))
+            check(len(sizes) == summary["config"]["n_agents"],
+                  f"run {name}'s log lists {len(sizes)} agents")
+            want = cli_launches_expected(name, summary, sizes)
             check(counts == want, f"run {name}: launches {counts}, want {want} and no other kernel")
             plain = {n: m.call_count for n, m in plain.items() if m.call_count}
             check(not plain, f"run {name} reached a plain engine on the card: {plain}")
@@ -3379,10 +3429,12 @@ def config7_wide_phase(dev, smi: str, full, ref) -> dict:
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     want_k3 = C7_ITERS * (1 + P) + C7_ITERS + rescores
     want_f64 = backfill_launches(C7_ITERS, C7_AGENTS)
-    check(counts["K3"] == want_k3 and counts["K1_f64"] == want_f64
-          and sum(counts.values()) == want_k3 + want_f64,
+    eig = backfill_eig_counts(C7_ITERS, [len(x) for x, _ in splits])
+    check(counts["K3"] == want_k3 and counts["K1_f64"] == want_f64 and counts_hold(counts, eig)
+          and sum(counts.values()) == want_k3 + want_f64 + sum(eig.values()),
           f"config #7 at 12 qubits launches {counts}: want K3 = {C7_ITERS}*(1+{P}) + "
-          f"{C7_ITERS} + {rescores} and K1_f64 = {want_f64} (the backfill), no other kernel")
+          f"{C7_ITERS} + {rescores}, K1_f64 = {want_f64} and {eig} (the backfill), no other "
+          f"kernel")
     check(not plain, f"config #7 at 12 qubits reached a plain engine on the card: {plain}")
     host = np.array([h["condition_numbers"] for h in res.nll_history])
     check(host.shape == (C7_ITERS, C7_AGENTS) and not bool(np.isnan(host).any()),
@@ -3567,11 +3619,13 @@ def run_e_at_reference_z(flags, split, ref, device) -> dict:
     return out
 
 
-def run_e_launches_expected(summary, num_parameters: int) -> dict:
+def run_e_launches_expected(summary, num_parameters: int, sizes) -> dict:
     """Run E's launches: K3 as in runs C and D; K1 float64 once an agent and
-    16 z rows in the backfill and once in the noise fit."""
+    16 z rows in the backfill and once in the noise fit; and the backfill's
+    eigenvalue counts over agents of ``sizes`` rows."""
     return {"K3": scale_out_launches_expected(summary, num_parameters),
-            "K1_f64": backfill_launches(summary["iterations"], summary["config"]["n_agents"]) + 1}
+            "K1_f64": backfill_launches(summary["iterations"], summary["config"]["n_agents"]) + 1,
+            **nonzero(backfill_eig_counts(summary["iterations"], sizes))}
 
 
 def run_e_phase(dev, ref) -> dict:
@@ -3596,8 +3650,10 @@ def run_e_phase(dev, ref) -> dict:
                      for n in PLAIN_ENGINES}
             summary, stages, split, wall = run_port_cli(
                 RUN_E_FLAGS + ["--device", str(dev)], os.path.join(out_dir, "run_E.log"))
+        sizes = agent_rows(os.path.join(out_dir, "run_E.log"))
+    check(len(sizes) == summary["config"]["n_agents"], f"run E's log lists {len(sizes)} agents")
     counts = {k: v for k, v in K.launch_counts().items() if v}
-    want = run_e_launches_expected(summary, config7_spec(C12_QUBITS).num_parameters)
+    want = run_e_launches_expected(summary, config7_spec(C12_QUBITS).num_parameters, sizes)
     check(counts == want, f"run E: launches {counts}, want {want} and no other kernel")
     plain = {n: m.call_count for n, m in plain.items() if m.call_count}
     check(not plain, f"run E reached a plain engine on the card: {plain}")
@@ -3638,6 +3694,139 @@ def wide_phase(dev, smi: str, rand_angles, full=None) -> dict:
     return {"kernels": kernels, "config7": c12, "fixture": fix, "run_e": run_e}
 
 
+# the batched eigenvalue kernel, as ptxas and the profiler name it
+EIG_ENTRY = "gram_extremes_kernel"
+
+
+def eig_ptxas(log: str) -> tuple:
+    """(registers, stack B, spill stores B, spill loads B) of the batched
+    eigenvalue kernel in ptxas -v's report; None where the build was reused."""
+    frame = None
+    for ln in log.splitlines():
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and frame is not None:
+            return (int(m.group(1)),) + frame
+    return None
+
+
+def eig_phase(dev, smi: str) -> dict:
+    """Phase 20: the batched eigenvalue kernel (ops/cuda_eig.py) on one
+    backfill chunk of the north star (16 z rows x 4 agents: 64 Grams of
+    238-260 rows), held to eigvalsh (the present path, an agent a call) and
+    timed against it in turns with CUDA events, then alone (the profiler);
+    its bound is 4n^3/3 operations a Gram at the card's FP64 rate. Then the
+    whole backfill of a 100-iteration fit (7 chunks) both ways, and a Gram
+    and a z row with a NaN."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.driver import host_condition_numbers
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import grams_at_rows
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.ops import cuda_eig as E
+
+    t0 = time.time()
+    X, Y, X_test, Y_test, splits = northstar_splits()
+    spec = northstar_spec()
+    with open(FIXTURE) as f:
+        Z = np.array(json.load(f)["z_trajectory"])
+    rng = np.random.RandomState(20)
+    rows = Z[rng.randint(len(Z), size=EIG_FIT_ROWS)] + rng.uniform(-0.05, 0.05, (EIG_FIT_ROWS,
+                                                                                Z.shape[1]))
+    zw = M.wrap(torch.as_tensor(rows[:16], device=dev))
+    grams = [grams_at_rows(spec, torch.as_tensor(X_i, device=dev), zw) for X_i, _ in splits]
+    sizes = [g.shape[1] for g in grams]
+    K.reset_launch_counts()
+    got = E.gram_extremes(grams)
+    counts = K.launch_counts()
+    check(counts["eig"] == 1 and counts["eig_grams"] == 64,
+          f"one launch for the chunk's 64 Grams, got {counts}")
+    want = torch.cat([E.gram_extremes_reference(g) for g in grams])
+    tiny = torch.finfo(torch.float64).tiny
+    cg, cw = [(w[:, 0] / torch.clamp(w[:, 1], min=tiny)).cpu().numpy() for w in (got, want)]
+    rel = hold_host_cond(cg, cw, "the chunk's condition numbers, kernel vs eigvalsh")
+    # each end on its own: max|w| relative, min|w| as a share of n * eps *
+    # max|w| (both backward stable on the same float64 Gram), which holds the
+    # small end where the condition number is above 1e8 and the bucket does not
+    big = float(((got[:, 0] - want[:, 0]).abs() / want[:, 0]).max())
+    n_rows = torch.tensor([g.shape[1] for g in grams for _ in range(g.shape[0])],
+                          dtype=torch.float64, device=dev)
+    small = float(((got[:, 1] - want[:, 1]).abs()
+                   / (n_rows * torch.finfo(torch.float64).eps * want[:, 0])).max())
+    check(big <= EIG_MAX_RTOL and small <= 1.0,
+          f"the chunk's extremes, kernel vs eigvalsh: max|w| rel dev {big:.2e} (bar "
+          f"{EIG_MAX_RTOL}), min|w| dev {small:.3f} of n * eps * max|w| (bar 1)")
+
+    kernel = lambda: E.gram_extremes(grams)  # noqa: E731
+    plain = lambda: [E.gram_extremes_reference(g) for g in grams]  # noqa: E731
+    ms, plain_ms = _alternate_ms([kernel, plain], EIG_REPS)
+    alone = _device_ms(kernel, EIG_REPS, EIG_ENTRY)
+    ops = sum(g.shape[0] * 4 * g.shape[1] ** 3 / 3 for g in grams)
+    bound = ops / FP64_OPS_PER_S * 1e3
+    C = E.cluster_size(max(sizes))
+    clusters = E._library().dqgp_gram_extremes_max_clusters(C, E.smem_bytes(max(sizes), C))
+
+    # the backfill of a 100-iteration fit (7 chunks) through the kernel and
+    # through eigvalsh (no n under the kernel's limit); then a z row with a
+    # NaN, on which the kernel reads NaN and eigvalsh raises: the backfill
+    # raises both ways
+    real_max = E.MAX_N
+
+    def backfill(max_n, z_rows=rows):
+        E.MAX_N = max_n
+        try:
+            return host_condition_numbers(spec, splits, z_rows, device=dev)
+        finally:
+            E.MAX_N = real_max
+
+    # the counts read from the main path's own backfill of the fit
+    K.reset_launch_counts()
+    fit_got = backfill(real_max)
+    fit_counts = {k: v for k, v in K.launch_counts().items() if k.startswith("eig")}
+    fit_want = backfill_eig_counts(EIG_FIT_ROWS, [len(x) for x, _ in splits])
+    check(fit_counts == fit_want,
+          f"the fit's backfill counted {fit_counts}: want {fit_want}")
+    fit_rel = hold_host_cond(fit_got, backfill(0), "the fit's backfill, kernel vs eigvalsh")
+    fit_ms, fit_plain_ms = _alternate_ms([lambda: backfill(real_max), lambda: backfill(0)], 1)
+
+    def outcome(fn):
+        try:
+            return str(np.asarray(fn()).tolist())
+        except torch.linalg.LinAlgError as exc:
+            return f"raises {type(exc).__name__}"
+
+    nan_gram = grams[0][:1].clone()
+    nan_gram[0, 3, 1] = nan_gram[0, 1, 3] = float("nan")
+    nan_kernel = outcome(lambda: E.gram_extremes([nan_gram]).cpu())
+    nan_eigvalsh = outcome(lambda: E.gram_extremes_reference(nan_gram).cpu())
+    nan_rows = rows[:2].copy()
+    nan_rows[1, 3] = np.nan
+    nan_backfill = [outcome(lambda: backfill(m, nan_rows)) for m in (real_max, 0)]
+    check(nan_backfill[0] == nan_backfill[1],
+          f"a NaN z row: the backfill through the kernel {nan_backfill[0]}, through "
+          f"eigvalsh {nan_backfill[1]}")
+    print(f"phase 20 batched eigenvalue kernel ({time.time() - t0:.2f} s) [{smi}]: one "
+          f"north-star backfill chunk, 64 Grams of {sorted(set(sizes))} rows in clusters of "
+          f"{C} ({E.smem_bytes(max(sizes), C)} B shared memory a block, {clusters} clusters "
+          f"at once): {ms:.3f} ms a call (alone {alone:.3f}) vs eigvalsh an agent a call "
+          f"{plain_ms:.3f} ms; bound {bound:.4f} ms ({ops:.3e} operations at FP64): "
+          f"{bound / alone:.2%} of it alone; condition numbers vs eigvalsh: worst rel dev "
+          f"{rel:.2e} (below 1e12), max|w| rel dev {big:.2e} (bar {EIG_MAX_RTOL}), min|w| dev "
+          f"{small:.3f} of n * eps * max|w| (bar 1); a fit's backfill ({EIG_FIT_ROWS} z rows, "
+          f"counted {fit_counts}) {fit_ms:.2f} ms vs eigvalsh {fit_plain_ms:.2f} ms "
+          f"(worst rel dev {fit_rel:.2e}); a NaN Gram: kernel {nan_kernel}, eigvalsh "
+          f"{nan_eigvalsh}; a NaN z row: the backfill {nan_backfill[0]} both ways", flush=True)
+    return {"ms": ms, "device_ms": alone, "plain_ms": plain_ms, "bound_ms": bound,
+            "ops": ops, "sizes": sizes, "cluster": C, "clusters": clusters,
+            "worst_rel_dev": rel, "max_rel_dev": big, "min_dev_of_n_eps_max": small,
+            "launches_fit_backfill": fit_counts["eig"], "fit_backfill_ms": fit_ms,
+            "fit_backfill_eigvalsh_ms": fit_plain_ms, "nan_eigvalsh": nan_eigvalsh}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3668,6 +3857,10 @@ def main(argv=None) -> int:
                     help="phases 1, 2 and 18 (the clip, --regularization on the CLI's CG "
                          "route, the Gram-free factor, nll_large, the example) with the "
                          "example and the clip at full size, without the result lines")
+    ap.add_argument("--eig", action="store_true",
+                    help="phases 1, 2 and 20 (the batched eigenvalue kernel of the "
+                         "condition-number backfill against eigvalsh) only, without the "
+                         "result lines")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3684,6 +3877,7 @@ def main(argv=None) -> int:
     from dqgp_tpu_torch.models.kernels.quantum_kernel import (
         gram_from_features, kernel_features)
     from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.ops import cuda_eig
     from dqgp_tpu_torch.ops.fusion import fuse_circuit
     from dqgp_tpu_torch.parallel.consensus import make_admm_step, make_agent_batch
 
@@ -3699,9 +3893,10 @@ def main(argv=None) -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.time()
-    builds = build_kernels(K.SOURCES + FIRST_LAYOUTS)
+    builds = build_kernels(K.SOURCES + (cuda_eig.SOURCE,) + FIRST_LAYOUTS)
     for src in K.SOURCES:
         K._library(src)
+    cuda_eig._library()
     for src in FIRST_LAYOUTS:
         _first_layout_library(src)
     # each warp kernel's sources: 1-10 qubits, then 11-12 where it goes there
@@ -3735,7 +3930,7 @@ def main(argv=None) -> int:
             ("vjp", K.vjp_geometry(c7_circuit), C7_QUBITS, "config #7")]
     per_sm = [K.blocks_per_sm(name, geo, n) for name, geo, n, _ in geos]
     print(f"phase 2 build ({time.time() - t0:.2f} s): "
-          + " | ".join(builds[src][0] for src in K.SOURCES + FIRST_LAYOUTS)
+          + " | ".join(builds[src][0] for src in K.SOURCES + (cuda_eig.SOURCE,) + FIRST_LAYOUTS)
           + " | ptxas by qubit count (registers, stack B, spill stores B, spill loads B): "
           + "; ".join(f"{name}: " + (", ".join(f"{n}: {info}" for n, info in r.items())
                                      or "reused") for name, r in regs.items())
@@ -3753,6 +3948,13 @@ def main(argv=None) -> int:
         check(all(info[1:] == (0, 0, 0) for info in regs[name].values()),
               f"{name} uses a stack frame or spills: {regs[name]}")
     check(all(v >= 1 for v in per_sm), f"a warp kernel does not fit an SM: {per_sm}")
+    eig_regs = eig_ptxas(builds[cuda_eig.SOURCE][1])
+    print(f"phase 2 batched eigenvalue kernel, ptxas (registers, stack B, spill stores B, spill "
+          f"loads B): {eig_regs or 'reused'}; cluster limits: "
+          + ", ".join(f"{C} blocks {cuda_eig.cluster_limit(C)} rows"
+                      for C in cuda_eig.CLUSTER_SIZES), flush=True)
+    check(eig_regs is None or eig_regs[1:] == (0, 0, 0),
+          f"the batched eigenvalue kernel uses a stack frame or spills: {eig_regs}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -3781,8 +3983,10 @@ def main(argv=None) -> int:
         scale_out_phase(dev, smi, config7_cg_reference(dev), full=True)
     if args.q12:
         wide_phase(dev, smi, rand_angles)
+    if args.eig:
+        eig_phase(dev, smi)
     if (args.k1 or args.k3 or args.states or args.vjp or args.cond or args.cli or args.scale_out
-            or args.q12):
+            or args.q12 or args.eig):
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
@@ -3820,7 +4024,10 @@ def main(argv=None) -> int:
     check(launches_f64 == backfill_launches(ITERS, N_AGENTS),
           f"K1_f64 launches {launches_f64}: want {backfill_launches(ITERS, N_AGENTS)} (the "
           f"condition-number backfill)")
-    check(sum(counts.values()) == launches + launches_f64,
+    main_eig = backfill_eig_counts(ITERS, [len(x) for x, _ in splits])
+    check(counts_hold(counts, main_eig),
+          f"eigenvalue counts {counts}: want {main_eig} (the backfill)")
+    check(sum(counts.values()) == launches + launches_f64 + sum(main_eig.values()),
           f"other kernels ran on the K1 path: {counts}")
     check(not any(np.isnan(h["condition_numbers"]).any() for h in res.nll_history),
           "the backfill left a condition number out")
@@ -3838,8 +4045,9 @@ def main(argv=None) -> int:
     nlpd_dev = abs(metrics["nlpd"] - ref["test_metrics"]["nlpd"])
     print(f"phase 4 main path: {ITERS} ADMM iterations + predict in {main_s:.2f} s; "
           f"K1 launches {launches} (= 2*{ITERS} + 2 + {rescores} f64 CV re-scores), K1_f64 "
-          f"{launches_f64} (the condition-number backfill); "
-          f"z dev {z_dev:.1e} (tol {Z_TOL}), CV-NLPD dev {cv_dev:.2e}, test NLPD "
+          f"{launches_f64} and eigenvalue counts { {k: counts[k] for k in main_eig} } (the "
+          f"condition-number backfill); z dev {z_dev:.1e} (tol {Z_TOL}), CV-NLPD dev "
+          f"{cv_dev:.2e}, test NLPD "
           f"{metrics['nlpd']:.4f} vs {ref['test_metrics']['nlpd']:.4f} "
           f"(tol {NLPD_TOL}), test R2 {metrics['r2']:.4f}", flush=True)
     check(z_dev <= Z_TOL, f"z trajectory deviates {z_dev} > {Z_TOL}")
@@ -3917,11 +4125,13 @@ def main(argv=None) -> int:
     fcounts = K.launch_counts()
     frescores = sum(h["solver"] == "float64-rescue" for h in fres.cv_history)
     fid_f64 = 1 + backfill_launches(FID_ITERS, FID_AGENTS)
+    feig = backfill_eig_counts(FID_ITERS, [len(x) for x, _ in fsplits])
     check(fcounts["K2"] == 2 * FID_ITERS + 2 + frescores and fcounts["K2_f64"] == fid_f64
+          and counts_hold(fcounts, feig)
           and fcounts["K1"] == fcounts["K1_f64"] == fcounts["K4"] == 0,
           f"fidelity path launches {fcounts}: want K2 = 2*{FID_ITERS} + 2 + "
           f"{frescores}, K2_f64 = {fid_f64} (the dataset Gram and the condition-number "
-          f"backfill), no other kernel")
+          f"backfill) and {feig} (the backfill), no other kernel")
     check(fres.converged_by == fref["converged_by"], f"stopped by {fres.converged_by}")
     check(fmean.shape == (len(X_te),) and bool(torch.isfinite(fmean).all())
           and bool(torch.isfinite(fvar).all()), "non-finite fidelity prediction")
@@ -3953,11 +4163,13 @@ def main(argv=None) -> int:
         config.use_fusion = "auto"
     urescores = sum(h["solver"] == "float64-rescue" for h in ures.cv_history)
     ufid_f64 = backfill_launches(FID_FUSED_ITERS, FID_AGENTS)
+    ueig = backfill_eig_counts(FID_FUSED_ITERS, [len(x) for x, _ in fsplits])
     check(ucounts["K4"] == 2 * FID_FUSED_ITERS + urescores and ucounts["K2_f64"] == ufid_f64
-          and sum(ucounts.values()) == ucounts["K4"] + ufid_f64,
+          and counts_hold(ucounts, ueig)
+          and sum(ucounts.values()) == ucounts["K4"] + ufid_f64 + sum(ueig.values()),
           f"fused path launches {ucounts}: want K4 = 2*{FID_FUSED_ITERS} + "
-          f"{urescores}, K2_f64 = {ufid_f64} (the backfill: float64 never fuses) and no "
-          f"other kernel")
+          f"{urescores}, K2_f64 = {ufid_f64} and {ueig} (the backfill: float64 never fuses) "
+          f"and no other kernel")
     uz_dev, unll_dev, ucv_ratio = check_fidelity_run(ures, fref, FID_FUSED_ITERS, "fused")
     program = fuse_circuit(fspec.circuit)
     print(f"phase 8 fused fidelity path: {FID_FUSED_ITERS} ADMM iterations, "
@@ -4015,6 +4227,9 @@ def main(argv=None) -> int:
     # 19. 11 and 12 qubits: K1 and K3 across warps, config #7 at 12 qubits ---
     wide = wide_phase(dev, smi, rand_angles, full)
     del full
+
+    # 20. the batched eigenvalue kernel of the condition-number backfill ------
+    eig = eig_phase(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": "pauli_features (K1)", "route": "cuda",
@@ -4088,6 +4303,13 @@ def main(argv=None) -> int:
                           "have no VJP, so there is no TPU kernel",
          **adjoint, "library_ms": None, "launches_config7": adjoint7["launches"],
          "config7_autodiff": adjoint7},
+        {"name": "gram_extremes (the backfill's batched eigenvalues)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/gram_extremes.cu",
+         "replaces": None,
+         "replaces_note": "no TPU kernel: the JAX package computes the backfill's "
+                          "eigenvalues on the host's LAPACK",
+         "launches": counts["eig"], **eig,
+         "library_ms": eig["plain_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -132,8 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["auto", "device", "host"],
                         help="where condition numbers compute: 'device' in the "
                              "step, from its float32-built Gram; 'host' after "
-                             "training, exact float64 eigvalsh values from each "
-                             "agent's float64 Gram on the training device. "
+                             "training, exact float64 eigenvalues of each agent's "
+                             "float64 Gram on the training device. "
                              "auto = device on the CPU, host on the card")
     parser.add_argument("--srtm-time-seed", action="store_true",
                         help="reproduce the reference's time-based SRTM seeding "

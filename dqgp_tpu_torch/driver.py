@@ -58,7 +58,7 @@ from .models.gp.cv import (
     k_fold_cross_validation_consensus,
 )
 from .models.kernels.quantum_kernel import QuantumKernelSpec, grams_at_rows
-from .ops import cuda_circuit
+from .ops import cuda_circuit, cuda_eig
 from .parallel.consensus import make_admm_step, make_agent_batch
 
 COND_MODES = ("auto", "device", "host")
@@ -193,16 +193,20 @@ def host_condition_numbers(
     row: the port of ``dqgp_tpu/driver.py::host_condition_numbers``.
 
     For every agent its true n_i x n_i Gram (no shard padding) at wrap(z),
-    built in float64 from complex128 states, then an eigvalsh and
-    max|w| / max(min|w|, tiny): the reference's ``np.linalg.cond`` on its
+    built in float64 from complex128 states, then max|w| / max(min|w|, tiny)
+    over its eigenvalues w: the reference's ``np.linalg.cond`` on its
     double-precision Grams (agent_riemannian.py:411), which resolves its
     1e12/1e15 buckets where the step's float32-built Gram floors at
     ~1e7-1e8. The rows go in chunks of ``chunk``, each chunk's rows x n_i
     samples through one feature call (``grams_at_rows``).
 
     It runs on ``device``: on the card through K1's and K2's float64
-    instantiations. The JAX package sends this work to the CPU because a TPU
-    emulates float64; the card computes float64 natively.
+    instantiations, then one call a chunk of the batched eigenvalue kernel's
+    wrapper (``ops/cuda_eig.py``) for all agents: one launch for every agent
+    whose n_i the kernel takes; an agent above its limit, and every agent on
+    the CPU, goes through eigvalsh an agent at a time. The JAX package sends
+    this work to the CPU because a TPU emulates float64; the card computes
+    float64 natively.
 
     z_rows: (T, P). Returns (T, A) float64."""
     device = torch.device(device)
@@ -215,13 +219,23 @@ def host_condition_numbers(
     Zw = M.wrap(torch.as_tensor(Z, device=device))
     Xs = [torch.as_tensor(np.asarray(X_i, np.float64), device=device)
           for X_i, _ in agent_data_splits]
+    conds = []
     for s in range(0, Z.shape[0], step):
-        for a, X_i in enumerate(Xs):
-            with tracing.span("driver.backfill_chunk"):
-                w = torch.abs(torch.linalg.eigvalsh(grams_at_rows(spec, X_i, Zw[s:s + step])))
-                cond = torch.amax(w, dim=-1) / torch.clamp(torch.amin(w, dim=-1), min=tiny)
-                with tracing.span("sync.backfill"):
-                    out[s:s + step, a] = cond.cpu().numpy()
+        with tracing.span("driver.backfill_chunk"):
+            w = cuda_eig.gram_extremes(grams_at_rows(spec, X_i, Zw[s:s + step]) for X_i in Xs)
+            conds.append(w[:, 0] / torch.clamp(w[:, 1], min=tiny))
+    # one read at the end, so that the host builds the next chunk's Grams
+    # while the card reduces this one's
+    with tracing.span("sync.backfill"):
+        for s, cond in zip(range(0, Z.shape[0], step), conds):
+            out[s:s + step] = cond.reshape(len(Xs), -1).T.cpu().numpy()
+    # the kernel reads NaN where a Gram has a non-finite entry; eigvalsh
+    # raises on such a Gram
+    kernel = [cuda_eig.takes_kernel(X_i.shape[0], device) for X_i in Xs]
+    if np.isnan(out[:, kernel]).any():
+        raise torch.linalg.LinAlgError(
+            "host_condition_numbers: a Gram has a non-finite entry (linalg.eigh fails to "
+            "converge on it)")
     return out
 
 

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from . import _build
+from . import _build, cuda_eig
 from .circuit import Circuit
 from .fusion import (
     DiagOp, PermOp, SU2Op, diag_patterns_concat, fuse_circuit, state_from_angles_fused,
@@ -759,11 +759,17 @@ _COUNTERS = {
     "K4": (states_from_angles_fused, "launches"),
     "K1_vjp": (circuit_vjp, "launches_features"),
     "K2_vjp": (circuit_vjp, "launches_states"),
+    # the batched eigenvalue kernel (cuda_eig): launches, the Grams it took,
+    # and the Grams the card sent to eigvalsh instead (above its limit)
+    "eig": (cuda_eig.gram_extremes, "launches"),
+    "eig_grams": (cuda_eig.gram_extremes, "grams"),
+    "eig_eigvalsh_grams": (cuda_eig.gram_extremes, "eigvalsh_grams"),
 }
 
 
 def launch_counts() -> dict:
-    """Every wrapper's launch count, by kernel and precision."""
+    """Every wrapper's launch count, by kernel and precision, and the
+    batched eigenvalue kernel's Gram counts."""
     return {k: getattr(fn, attr) for k, (fn, attr) in _COUNTERS.items()}
 
 

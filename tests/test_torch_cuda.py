@@ -2,7 +2,8 @@
 float32 and float64, 1-12 qubits), states (K2, float32 and float64),
 fused-program Pauli features (K3, 1-12 qubits), fused-program states (K4)
 and the adjoint (the backward of K1 and K2) — against their plain PyTorch
-versions, on CUDA tensors, and the
+versions, on CUDA tensors; the batched eigenvalue kernel of the
+condition-number backfill against torch.linalg.eigvalsh; and the
 manifold optimizer on points on the card. They skip where there is no card.
 
 On a GPU host, where JAX need not be installed (the port does not use it),
@@ -174,7 +175,8 @@ def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
     monkeypatch.setattr(fusion, "su2_products", no_packed_rows)
     TQ.features_from_angles(spec, a)
     assert K1.launch_counts() == {"K1": 0, "K1_f64": 0, "K2": 1, "K2_f64": 1, "K3": 0,
-                                  "K4": 1, "K1_vjp": 0, "K2_vjp": 0}
+                                  "K4": 1, "K1_vjp": 0, "K2_vjp": 0, "eig": 0,
+                                  "eig_grams": 0, "eig_eigvalsh_grams": 0}
 
 
 @pytest.mark.parametrize("enc", ENCODING_TYPES)
@@ -211,7 +213,8 @@ def test_card_fused_projected_features_go_through_k3(cuda, monkeypatch):
     monkeypatch.setattr(config, "use_fusion", "off")
     TQ.features_from_angles(spec, a)
     assert K1.launch_counts() == {"K1": 1, "K1_f64": 1, "K2": 0, "K2_f64": 0, "K3": 1,
-                                  "K4": 0, "K1_vjp": 0, "K2_vjp": 0}
+                                  "K4": 0, "K1_vjp": 0, "K2_vjp": 0, "eig": 0,
+                                  "eig_grams": 0, "eig_eigvalsh_grams": 0}
 
 
 def _cheb_problem(kernel_type="projected", n=60, agents=2, qubits=3, enc=None):
@@ -367,3 +370,184 @@ def test_eigvalsh_cannot_be_captured(cuda):
     with pytest.raises(RuntimeError):
         with torch.cuda.graph(g, stream=stream):
             torch.linalg.eigvalsh(C)
+
+
+# ---------------------------------------------------------------------------
+# the batched eigenvalue kernel (ops/cuda_eig.py) against eigvalsh
+# ---------------------------------------------------------------------------
+
+_BUCKETS = (1e8, 1e12, 1e15)
+
+
+def _conds(ext):
+    return (ext[:, 0] / torch.clamp(ext[:, 1], min=torch.finfo(torch.float64).tiny)).cpu()
+
+
+def _hold_conds(got, want, what=""):
+    """rtol 1e-6 below 1e8, the same bucket (1e8 / 1e12 / 1e15) above: the
+    benchmark's ``cond`` bar at a tenth of its limit."""
+    import numpy as np
+
+    def bucket(c):
+        return sum(c >= b for b in _BUCKETS) if np.isfinite(c) else len(_BUCKETS)
+
+    for g, w in zip(np.ravel(got), np.ravel(want)):
+        if w < _BUCKETS[0]:
+            assert abs(g - w) <= 1e-6 * w, (what, g, w)
+        else:
+            assert bucket(g) == bucket(w), (what, g, w)
+
+
+def _hold_extremes(got, want, n):
+    """max|w| at rtol 1e-10, and min|w| within n * eps * max|w| of eigvalsh's
+    (``n`` the rows of each Gram): both methods are backward stable on the
+    same float64 Gram. Above a condition number of 1e8 this holds the small
+    end, which the bucket does not."""
+    n = torch.as_tensor(n, dtype=torch.float64, device=got.device)
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-10, atol=0)
+    bar = n * torch.finfo(torch.float64).eps * want[:, 0]
+    assert bool(((got[:, 1] - want[:, 1]).abs() <= bar).all()), (
+        ((got[:, 1] - want[:, 1]).abs() / bar).max())
+
+
+def _spectrum_grams(gen, n, spectra, device):
+    """Q diag(w) Q^T for each spectrum w (n values), Q a seeded orthogonal."""
+    Q, _ = torch.linalg.qr(torch.randn((len(spectra), n, n), generator=gen, device=device,
+                                       dtype=torch.float64))
+    W = torch.stack([torch.as_tensor(w, dtype=torch.float64, device=device) for w in spectra])
+    A = (Q * W[:, None, :]) @ Q.transpose(-1, -2)
+    return 0.5 * (A + A.transpose(-1, -2))
+
+
+def _northstar():
+    import contextlib
+    import io
+    import json
+    from pathlib import Path
+
+    import numpy as np
+
+    import chip_smoke as cs
+    from dqgp_tpu_torch.data import split_data_numpy
+
+    ref = json.loads((Path(__file__).resolve().parent / "fixtures"
+                      / "torch_port_northstar.json").read_text())
+    X, Y, _, _ = cs.make_problem()
+    with contextlib.redirect_stdout(io.StringIO()):
+        splits = split_data_numpy(X, Y, cs.N_AGENTS, "regional")
+    return cs.northstar_spec(), splits, np.array(ref["z_trajectory"])
+
+
+def test_eig_kernel_layout_matches_the_wrapper(cuda):
+    """The kernel's shared-memory layout is the wrapper's, and a cluster of
+    each size fits the card at its limit."""
+    from dqgp_tpu_torch.ops import cuda_eig as E
+
+    lib = E._library()
+    for C in E.CLUSTER_SIZES:
+        for n in (1, 2, 31, 33, 225, 238, 260, E.cluster_limit(C)):
+            assert lib.dqgp_gram_extremes_smem_bytes(n, C) == E.smem_bytes(n, C)
+        assert lib.dqgp_gram_extremes_max_clusters(C, E.smem_bytes(E.cluster_limit(C), C)) >= 1
+
+
+def test_eig_kernel_every_size_on_card(cuda):
+    """Every n from 1 to the kernel's limit, one launch an n (so every
+    cluster size): a positive definite spectrum (condition number 1e6) and
+    an indefinite one whose least |w| is a small negative eigenvalue."""
+    import numpy as np
+
+    from dqgp_tpu_torch.ops import cuda_eig as E
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    K1.reset_launch_counts()
+    for n in range(1, E.MAX_N + 1):
+        pos = np.geomspace(1.0, 1e-6, n)
+        ind = np.linspace(-1.0, 2.0, n)
+        ind[n // 2] = -1e-4
+        G = _spectrum_grams(gen, n, [pos, ind], cuda)
+        got, want = E.gram_extremes([G]), E.gram_extremes_reference(G)
+        _hold_extremes(got, want, n)
+        _hold_conds(_conds(got), _conds(want), f"n {n}")
+    counts = K1.launch_counts()
+    assert (counts["eig"], counts["eig_grams"], counts["eig_eigvalsh_grams"]) == (
+        E.MAX_N, 2 * E.MAX_N, 0)
+
+
+def test_eig_kernel_on_a_ragged_northstar_chunk(cuda):
+    """A backfill chunk of the north star: 16 z rows x 4 agents of 238-260
+    rows, 64 Grams of 4 sizes in one launch of clusters of two."""
+    import numpy as np
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import grams_at_rows
+    from dqgp_tpu_torch.ops import cuda_eig as E
+
+    spec, splits, Z = _northstar()
+    rng = np.random.RandomState(2)
+    rows = M.wrap(torch.as_tensor(Z[rng.randint(len(Z), size=16)]
+                                  + rng.uniform(-0.05, 0.05, (16, Z.shape[1])), device=cuda))
+    grams = [grams_at_rows(spec, torch.as_tensor(X_i, device=cuda), rows) for X_i, _ in splits]
+    assert sorted({g.shape[1] for g in grams}) == sorted(len(x) for x, _ in splits)
+    K1.reset_launch_counts()
+    got = E.gram_extremes(grams)
+    assert K1.launch_counts()["eig"] == 1 and K1.launch_counts()["eig_grams"] == 64
+    want = torch.cat([E.gram_extremes_reference(g) for g in grams])
+    _hold_extremes(got, want, [g.shape[1] for g in grams for _ in range(g.shape[0])])
+    _hold_conds(_conds(got), _conds(want))
+
+
+def test_eig_backfill_matches_the_eigvalsh_path_on_card(cuda, monkeypatch):
+    """host_condition_numbers on the north star's fixture z: one launch a
+    16-row chunk for all four agents, against the eigvalsh path (an agent a
+    call, every Gram counted as sent to eigvalsh)."""
+    import numpy as np
+
+    from dqgp_tpu_torch.driver import host_condition_numbers
+    from dqgp_tpu_torch.ops import cuda_eig as E
+
+    spec, splits, Z = _northstar()
+    rows = np.concatenate([Z + 0.01 * k for k in range(4)])  # 20 rows: 2 chunks
+    K1.reset_launch_counts()
+    got = host_condition_numbers(spec, splits, rows, device=cuda)
+    counts = K1.launch_counts()
+    assert (counts["eig"], counts["eig_grams"], counts["eig_eigvalsh_grams"]) == (2, 80, 0)
+    monkeypatch.setattr(E, "MAX_N", 0)
+    K1.reset_launch_counts()
+    want = host_condition_numbers(spec, splits, rows, device=cuda)
+    counts = K1.launch_counts()
+    assert (counts["eig"], counts["eig_grams"], counts["eig_eigvalsh_grams"]) == (0, 0, 80)
+    assert got.shape == want.shape == (20, 4)
+    _hold_conds(got, want)
+
+
+def test_eig_kernel_on_a_non_finite_gram(cuda, monkeypatch):
+    """A Gram with a NaN or an inf entry: eigvalsh on the card raises
+    LinAlgError or reads NaN; the kernel reads NaN for both extremes and
+    leaves the Grams beside it in the launch as they are; the backfill of a
+    z row with a NaN raises on both paths."""
+    import numpy as np
+
+    from dqgp_tpu_torch.driver import host_condition_numbers
+    from dqgp_tpu_torch.ops import cuda_eig as E
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for n in (6, 240):
+        G = _spectrum_grams(gen, n, [[1.0 + k / n for k in range(n)]] * 3, cuda)
+        G[1, 3, 1] = G[1, 1, 3] = float("nan")
+        G[2, n - 1, n - 1] = float("inf")
+        for bad in (G[1:2], G[2:3]):  # eigvalsh raises or reads NaN, never a number
+            try:
+                assert torch.isnan(_conds(E.gram_extremes_reference(bad))).all()
+            except torch.linalg.LinAlgError:
+                pass
+        got = E.gram_extremes([G])
+        assert torch.isnan(got[1:]).all()
+        _hold_extremes(got[:1], E.gram_extremes_reference(G[:1]), n)
+    spec, splits, Z = _northstar()
+    rows = Z[:2].copy()
+    rows[1, 3] = np.nan
+    with pytest.raises(torch.linalg.LinAlgError):
+        host_condition_numbers(spec, splits, rows, device=cuda)
+    monkeypatch.setattr(E, "MAX_N", 0)
+    with pytest.raises(torch.linalg.LinAlgError):
+        host_condition_numbers(spec, splits, rows, device=cuda)
