@@ -1486,6 +1486,8 @@ def config7_phases(dev, smi: str, rand_angles):
           and sum(counts.values()) == counts["K3"],
           f"config #7 launches {train_counts} / {counts}: want K3 = {C7_ITERS}*(1+{P}) + "
           f"{C7_ITERS} + {rescores} in training, + 2 with the predictor, and no K1")
+    check(not any(K.wide_launch_counts().values()),
+          f"config #7 at 10 qubits took a wide instantiation: {K.wide_launch_counts()}")
     nll1 = res.nll_history[0]["total_nll"]
     cv1 = res.cv_history[0]["consensus_cv_score"]
     nll_rel = abs(nll1 - C7_NLL_ITER1) / C7_NLL_ITER1
@@ -3424,6 +3426,7 @@ def config7_wide_phase(dev, smi: str, full, ref) -> dict:
         torch.cuda.synchronize()
     train_s = time.time() - t0
     counts = K.launch_counts()
+    wide = K.wide_launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     plain = {n: m.call_count for n, m in plain.items() if m.call_count}
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
@@ -3435,6 +3438,9 @@ def config7_wide_phase(dev, smi: str, full, ref) -> dict:
           f"config #7 at 12 qubits launches {counts}: want K3 = {C7_ITERS}*(1+{P}) + "
           f"{C7_ITERS} + {rescores}, K1_f64 = {want_f64} and {eig} (the backfill), no other "
           f"kernel")
+    check(wide == {"K1": 0, "K1_f64": want_f64, "K3": want_k3},
+          f"config #7 at 12 qubits counts wide launches {wide}: want every K3 and K1_f64 "
+          f"launch ({want_k3}, {want_f64})")
     check(not plain, f"config #7 at 12 qubits reached a plain engine on the card: {plain}")
     host = np.array([h["condition_numbers"] for h in res.nll_history])
     check(host.shape == (C7_ITERS, C7_AGENTS) and not bool(np.isnan(host).any()),
@@ -3482,6 +3488,7 @@ def config7_wide_phase(dev, smi: str, full, ref) -> dict:
         torch.cuda.synchronize()
         off_s = time.time() - t1
         off_counts = K.launch_counts()
+        off_wide = K.wide_launch_counts()
     finally:
         config.use_fusion = "auto"
     off_rescores = sum(h["solver"] == "float64-rescue" for h in off.cv_history)
@@ -3489,12 +3496,15 @@ def config7_wide_phase(dev, smi: str, full, ref) -> dict:
     check(off_counts["K1"] == want_k1 and sum(off_counts.values()) == want_k1,
           f"config #7 at 12 qubits with fusion off launches {off_counts}: want K1 = 1 + {P} + "
           f"1 + {off_rescores} and no other kernel")
+    check(off_wide == {"K1": want_k1, "K1_f64": 0, "K3": 0},
+          f"config #7 at 12 qubits with fusion off counts wide launches {off_wide}: want "
+          f"K1 = {want_k1}")
     off_rel = abs(off.nll_history[0]["total_nll"] / res.nll_history[0]["total_nll"] - 1)
     print(f"phase 19b config #7 at 12 qubits ({time.time() - t0:.2f} s) [{smi}]: {len(X_tr)} "
           f"train rows over {C7_AGENTS} agents, chebyshev {C12_QUBITS} qubits / {C7_LAYERS} "
           f"layers (P = {P}), {C7_ITERS} streamed iterations with compute_cond=True, cond_mode "
           f"auto = host, in {train_s:.2f} s (peak allocated {peak:.2f} GiB); launches {counts} "
-          f"(K3 = {want_k3}, K1_f64 = {want_f64}), no plain engine; nll_sum "
+          f"(K3 = {want_k3}, K1_f64 = {want_f64}), wide {wide}, no plain engine; nll_sum "
           f"{[round(h['total_nll'], 4) for h in res.nll_history]}, CV-NLPD "
           f"{[round(h['consensus_cv_score'], 4) for h in res.cv_history]}; iteration 1's "
           f"agent NLLs of agents {held} {own.tolist()} vs the plain float64 engine's "

@@ -49,12 +49,15 @@ state in shared memory: ``csrc/circuit_f64_first_layout.cu``, sized by
 ``chip_smoke.py``, to time them beside the register layout.
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc at first
-use) and adds one to its launch count: ``.launches`` for the float32
-instantiation and ``.launches_f64`` for the float64 one (``circuit_vjp``:
-``.launches_features`` and ``.launches_states``). On a CPU tensor it
-runs the kernel's plain PyTorch version (the ``*_reference`` functions) and
-counts nothing. There is no fallback: on the card a wrapper launches or
-raises.
+use) inside the span ``cuda_circuit.launch:<key>`` (``tracing``; ``<key>``
+the kernel's key in ``launch_counts()``) and adds one to its launch count:
+``.launches`` for the float32 instantiation and ``.launches_f64`` for the
+float64 one (``circuit_vjp``: ``.launches_features`` and
+``.launches_states``); a launch of an 11- or 12-qubit instantiation (one of
+``WIDE_SOURCES``) is counted in ``wide_launch_counts()`` as well. On a CPU
+tensor it runs the kernel's plain PyTorch version (the ``*_reference``
+functions) and counts nothing. There is no fallback: on the card a wrapper
+launches or raises.
 """
 
 from __future__ import annotations
@@ -166,6 +169,18 @@ def _launch(source: str, fn: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{fn} kernel launch failed: "
                            + lib.dqgp_cuda_error_string(err).decode())
+
+
+def _launch_counted(key: str, source: str, fn: str, device: torch.device, *args) -> None:
+    """``_launch`` inside the span ``cuda_circuit.launch:<key>``, then one
+    more launch of ``key`` (a ``launch_counts()`` key) and, where ``source``
+    is the key's wide source, one more wide launch."""
+    with tracing.span(f"cuda_circuit.launch:{key}"):
+        _launch(source, fn, device, *args)
+    counter, attr = _COUNTERS[key]
+    setattr(counter, attr, getattr(counter, attr) + 1)
+    if source == WIDE_SOURCES.get(key):
+        _wide_launches[key] += 1
 
 
 def states_bit(num_qubits: int, qubit: int) -> int:
@@ -291,17 +306,12 @@ def pauli_features_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.
     out = torch.empty((B, 3 * n), dtype=angles.dtype, device=angles.device)
     if B == 0:
         return out
-    f64 = angles.dtype == torch.float64
+    key = "K1_f64" if angles.dtype == torch.float64 else "K1"
     geo = features_geometry(circuit, angles.element_size())
-    _launch(kernel_source("K1_f64" if f64 else "K1", n),
-            "dqgp_pauli_features_f64" if f64 else "dqgp_pauli_features",
-            angles.device, angles.data_ptr(),
-            _gate_table(circuit, angles.device).data_ptr(),  # qubit q on bit q
-            out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
-    if f64:
-        pauli_features_from_angles.launches_f64 += 1
-    else:
-        pauli_features_from_angles.launches += 1
+    _launch_counted(key, kernel_source(key, n), _WARP_KERNELS[key][1],
+                    angles.device, angles.data_ptr(),
+                    _gate_table(circuit, angles.device).data_ptr(),  # qubit q on bit q
+                    out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
     return out
 
 
@@ -328,15 +338,11 @@ def states_from_angles(circuit: Circuit, angles: torch.Tensor) -> torch.Tensor:
                       device=angles.device)
     if B == 0:
         return out
-    f64 = angles.dtype == torch.float64
+    key = "K2_f64" if angles.dtype == torch.float64 else "K2"
     geo = states_geometry(circuit, angles.element_size())
-    _launch(STATES_SOURCE, "dqgp_states_f64" if f64 else "dqgp_states", angles.device,
-            angles.data_ptr(), _gate_table(circuit, angles.device, True).data_ptr(),
-            out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
-    if f64:
-        states_from_angles.launches_f64 += 1
-    else:
-        states_from_angles.launches += 1
+    _launch_counted(key, STATES_SOURCE, _WARP_KERNELS[key][1], angles.device,
+                    angles.data_ptr(), _gate_table(circuit, angles.device, True).data_ptr(),
+                    out.data_ptr(), B, G, n, geo.threads, geo.smem_bytes)
     return out
 
 
@@ -579,17 +585,17 @@ def blocks_per_sm(kernel: str, geo: WarpGeometry, num_qubits: int) -> int:
 
 def _launch_fused(kernel: str, circuit: Circuit, angles: torch.Tensor,
                   out: torch.Tensor, states_layout: bool) -> None:
-    """One launch of K3 or K4 on (B, G) float32 CUDA angles."""
+    """One launch of K3 or K4 on (B, G) float32 CUDA angles, counted."""
     n = circuit.num_qubits
     program = fuse_circuit(circuit)
     ops, gates, members, cperm = _fused_device_tables(circuit, angles.device, states_layout)
     geo = fused_geometry(circuit)
     n_members = members.shape[0] // (2 if n > ONE_WARP_QUBITS else 1)  # then codes
-    _launch(kernel_source(kernel, n), _WARP_KERNELS[kernel][1], angles.device,
-            angles.data_ptr(), cperm.data_ptr(), ops.data_ptr(), gates.data_ptr(),
-            members.data_ptr(), out.data_ptr(), angles.shape[0], n, circuit.num_gates,
-            len(program.ops), gates.shape[0], n_members, program.n_su2, cperm.shape[0],
-            geo.threads, geo.smem_bytes)
+    _launch_counted(kernel, kernel_source(kernel, n), _WARP_KERNELS[kernel][1],
+                    angles.device, angles.data_ptr(), cperm.data_ptr(), ops.data_ptr(),
+                    gates.data_ptr(), members.data_ptr(), out.data_ptr(), angles.shape[0], n,
+                    circuit.num_gates, len(program.ops), gates.shape[0], n_members,
+                    program.n_su2, cperm.shape[0], geo.threads, geo.smem_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -614,7 +620,6 @@ def states_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> torch.Te
     if angles.shape[0] == 0:
         return out
     _launch_fused("K4", circuit, angles, out, states_layout=True)
-    states_from_angles_fused.launches += 1
     return out
 
 
@@ -642,7 +647,6 @@ def pauli_features_from_angles_fused(circuit: Circuit, angles: torch.Tensor) -> 
     if angles.shape[0] == 0:
         return out
     _launch_fused("K3", circuit, angles, out, states_layout=False)
-    pauli_features_from_angles_fused.launches += 1
     return out
 
 
@@ -713,13 +717,10 @@ def circuit_vjp(circuit: Circuit, angles: torch.Tensor, cotangent: torch.Tensor,
     if states:
         cot = torch.view_as_real(cot)
     geo = vjp_geometry(circuit)
-    _launch(VJP_SOURCE, "dqgp_circuit_vjp", angles.device, angles.data_ptr(),
-            _gate_table(circuit, angles.device, states).data_ptr(), cot.data_ptr(),
-            grad.data_ptr(), B, G, n, int(states), geo.threads, geo.smem_bytes)
-    if output == "features":
-        circuit_vjp.launches_features += 1
-    else:
-        circuit_vjp.launches_states += 1
+    _launch_counted("K2_vjp" if states else "K1_vjp", VJP_SOURCE, "dqgp_circuit_vjp",
+                    angles.device, angles.data_ptr(),
+                    _gate_table(circuit, angles.device, states).data_ptr(), cot.data_ptr(),
+                    grad.data_ptr(), B, G, n, int(states), geo.threads, geo.smem_bytes)
     return grad
 
 
@@ -767,12 +768,25 @@ _COUNTERS = {
 }
 
 
+# the launches of the 11- and 12-qubit instantiations, by the keys of WIDE_SOURCES
+_wide_launches = dict.fromkeys(WIDE_SOURCES, 0)
+
+
 def launch_counts() -> dict:
     """Every wrapper's launch count, by kernel and precision, and the
     batched eigenvalue kernel's Gram counts."""
     return {k: getattr(fn, attr) for k, (fn, attr) in _COUNTERS.items()}
 
 
+def wide_launch_counts() -> dict:
+    """Of ``launch_counts()``, the launches that took an 11- or 12-qubit
+    instantiation (``WIDE_SOURCES``), by the same keys."""
+    return dict(_wide_launches)
+
+
 def reset_launch_counts() -> None:
+    """Zero ``launch_counts()`` and ``wide_launch_counts()``."""
     for fn, attr in _COUNTERS.values():
         setattr(fn, attr, 0)
+    for k in _wide_launches:
+        _wide_launches[k] = 0

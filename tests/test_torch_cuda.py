@@ -551,3 +551,61 @@ def test_eig_kernel_on_a_non_finite_gram(cuda, monkeypatch):
     monkeypatch.setattr(E, "MAX_N", 0)
     with pytest.raises(torch.linalg.LinAlgError):
         host_condition_numbers(spec, splits, rows, device=cuda)
+
+
+def test_each_launch_is_one_span_on_card(cuda):
+    """Under the profiler every hand-kernel launch records one span
+    ``cuda_circuit.launch:<key>`` (its ``launch_counts()`` key), in the
+    order of the launches, and none without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dqgp_tpu_torch import tracing
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    c4, c6, c10 = (build_circuit("chebyshev", n, 2, 2) for n in (4, 6, 10))
+
+    def launch_all():
+        K1.pauli_features_from_angles(c4, _angles(gen, c4, 64, torch.float32))
+        K1.pauli_features_from_angles(c4, _angles(gen, c4, 64, torch.float64))
+        K1.pauli_features_from_angles_fused(c10, _angles(gen, c10, 64, torch.float32))
+        K1.states_from_angles(c6, _angles(gen, c6, 64, torch.float32))
+        K1.states_from_angles_fused(c6, _angles(gen, c6, 64, torch.float32))
+        K1.circuit_vjp(c6, _angles(gen, c6, 64, torch.float32),
+                       torch.ones((64, 18), device=cuda), "features")
+        torch.cuda.synchronize()
+        return ["K1", "K1_f64", "K3", "K2", "K4", "K1_vjp"]
+
+    launch_all()  # builds and loads every library outside the profile
+    before = len(tracing.spans())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        keys = launch_all()
+    names = [s.name for s in tracing.spans()[before:] if s.name.startswith("cuda_circuit.")]
+    assert names == [f"cuda_circuit.launch:{k}" for k in keys]
+    n = len(tracing.spans())
+    launch_all()
+    assert len(tracing.spans()) == n
+
+
+def test_wide_launches_are_counted_on_card(cuda):
+    """A launch of an 11- or 12-qubit instantiation counts in
+    ``wide_launch_counts()`` as well as in ``launch_counts()``; one at 10
+    qubits only in the latter."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    c10, c11, c12 = (build_circuit("chebyshev", n, 2, 2) for n in (10, 11, 12))
+    K1.reset_launch_counts()
+    try:
+        K1.pauli_features_from_angles_fused(c10, _angles(gen, c10, 40, torch.float32))
+        K1.pauli_features_from_angles(c10, _angles(gen, c10, 40, torch.float32))
+        torch.cuda.synchronize()
+        assert K1.wide_launch_counts() == {"K1": 0, "K1_f64": 0, "K3": 0}
+        K1.pauli_features_from_angles_fused(c12, _angles(gen, c12, 40, torch.float32))
+        K1.pauli_features_from_angles(c11, _angles(gen, c11, 40, torch.float32))
+        K1.pauli_features_from_angles(c12, _angles(gen, c12, 40, torch.float64))
+        torch.cuda.synchronize()
+        assert K1.wide_launch_counts() == {"K1": 1, "K1_f64": 1, "K3": 1}
+        counts = K1.launch_counts()
+        assert (counts["K1"], counts["K1_f64"], counts["K3"]) == (2, 1, 2)
+        assert sum(counts.values()) == 5
+    finally:
+        K1.reset_launch_counts()
+    assert K1.wide_launch_counts() == {"K1": 0, "K1_f64": 0, "K3": 0}
