@@ -113,8 +113,8 @@ Phases, one line each; any failure raises and exits non-zero:
              max(0.05, 2 |JAX f32 - JAX f64|), the spread over JAX's
              feature precision. (b) Full size: 49999 rows
              over 64 agents (Nmax 844), 2 iterations, the CG predictor on
-             all rows and a 512-row predict: K3's exact launch count and no
-             other kernel, iteration 1's nll_sum within 1e-3 relative of the
+             all rows and a 512-row predict: K3's and the contraction
+             kernel's exact launch counts (phase 21) and no other kernel, iteration 1's nll_sum within 1e-3 relative of the
              JAX package's 90126.2668, the streamed gradient within 1e-6
              of the central one on 2 agents, and the CG posterior within
              mean rtol 1e-3 / variance rtol 1e-2 (atol 1e-5) of the dense
@@ -263,6 +263,20 @@ Phases, one line each; any failure raises and exits non-zero:
              route (RUN_E_FLAGS), held to the JAX CLI's run at run C's bars,
              the fitted sigma and the NLPDs at JAX's z.
 
+20. eig     — the batched eigenvalue kernel of the condition-number
+             backfill (csrc/gram_extremes.cu, ops/cuda_eig.py) on a north-star
+             backfill chunk against eigvalsh, and timed beside it.
+
+21. pair    — the streamed gradient's contraction kernel
+             (csrc/shift_pair_contract.cu, ops/cuda_pair.py: one call a
+             parameter from the +-h features to g_p, in place of the Gram pair
+             and its PyTorch passes) at one parameter of config #7 at full
+             width (64 agents of 717-844 rows) at 10 and 12 qubits: g_p
+             against its plain version within 1e-6 of the largest component
+             for each nu, identical reruns, a NaN feature reaching its agent
+             alone; the kernel and the loop's body in turns with CUDA events,
+             the kernel alone from the profiler, its bound and share of it.
+
 The last two lines are a JSON record of the kernels (K1, K1_f64, K2,
 K2_f64, K3, K4 and the adjoint, each with its bound: the larger of its bytes
 over the card's memory rate and its operations over the rate of their type)
@@ -306,6 +320,16 @@ example at its default N = 50,000 and the clip on all 49,999 training rows.
     python3 chip_smoke.py --q12
 
 runs phases 1, 2 and 19 only (no result lines): 11 and 12 qubits.
+
+    python3 chip_smoke.py --eig
+
+runs phases 1, 2 and 20 only (no result lines): the batched eigenvalue
+kernel.
+
+    python3 chip_smoke.py --pair
+
+runs phases 1, 2 and 21 only (no result lines): the streamed gradient's
+contraction kernel.
 """
 
 import functools
@@ -1424,9 +1448,11 @@ def config7_phases(dev, smi: str, rand_angles):
     counts = K.launch_counts()
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     want_k3 = C7_FIX_ITERS * (P + 2) + rescores + 2
-    check(counts["K3"] == want_k3 and sum(counts.values()) == counts["K3"],
-          f"fixture launches {counts}: want K3 = {C7_FIX_ITERS}*({P}+2) + {rescores} + 2 "
-          f"and no other kernel")
+    want_pair = C7_FIX_ITERS * P
+    check(counts["K3"] == want_k3 and counts["pair_contract"] == want_pair
+          and sum(counts.values()) == want_k3 + want_pair,
+          f"fixture launches {counts}: want K3 = {C7_FIX_ITERS}*({P}+2) + {rescores} + 2, "
+          f"pair_contract = {C7_FIX_ITERS}*{P} and no other kernel")
     check(mean.shape == (len(X_te),) and bool(torch.isfinite(mean).all())
           and bool(torch.isfinite(var).all()), "non-finite fixture prediction")
     # the agent NLLs at JAX's own z (not the main path's launches: the counts
@@ -1477,15 +1503,20 @@ def config7_phases(dev, smi: str, rand_angles):
     c7 = {"X_tr": X_tr, "Y_tr": Y_tr, "X_te": X_te, "Y_te": Y_te, "splits": splits,
           "z": torch.as_tensor(res.z, device=dev), "mean": mean, "var": var,
           "setup_ms": setup_ms, "predict_ms": predict_ms,
-          "alpha_iterations": predict.alpha_result.iterations}
+          "alpha_iterations": predict.alpha_result.iterations,
+          "pair_launches": counts["pair_contract"]}
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     # per step: the Gram at wrap(z) + one +-h launch per parameter; per CV
     # pass: one; per predictor: the training rows, then the eval rows
+    # and one contraction call a parameter and step
     want_train = C7_ITERS * (1 + P) + C7_ITERS + rescores
+    want_pair = C7_ITERS * P
     check(train_counts["K3"] == want_train and counts["K3"] == want_train + 2
-          and sum(counts.values()) == counts["K3"],
+          and counts["pair_contract"] == want_pair
+          and sum(counts.values()) == counts["K3"] + want_pair,
           f"config #7 launches {train_counts} / {counts}: want K3 = {C7_ITERS}*(1+{P}) + "
-          f"{C7_ITERS} + {rescores} in training, + 2 with the predictor, and no K1")
+          f"{C7_ITERS} + {rescores} in training, + 2 with the predictor, pair_contract = "
+          f"{C7_ITERS}*{P}, and no K1")
     check(not any(K.wide_launch_counts().values()),
           f"config #7 at 10 qubits took a wide instantiation: {K.wide_launch_counts()}")
     nll1 = res.nll_history[0]["total_nll"]
@@ -1631,10 +1662,13 @@ def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
     want_k3 = C7_ITERS * (1 + P) + C7_ITERS + rescores
     want_f64 = backfill_launches(C7_ITERS, C7_AGENTS)
     eig = backfill_eig_counts(C7_ITERS, [len(x) for x, _ in splits])
+    want_pair = C7_ITERS * P
     check(counts["K1_f64"] == want_f64 and counts["K3"] == want_k3 and counts_hold(counts, eig)
-          and sum(counts.values()) == want_f64 + want_k3 + sum(eig.values()),
-          f"config #7 with cond launches {counts}: want K3 = {want_k3} in training and "
-          f"K1_f64 = {want_f64} and {eig} in the backfill, no other kernel")
+          and counts["pair_contract"] == want_pair
+          and sum(counts.values()) == want_f64 + want_k3 + want_pair + sum(eig.values()),
+          f"config #7 with cond launches {counts}: want K3 = {want_k3} and pair_contract = "
+          f"{want_pair} in training and K1_f64 = {want_f64} and {eig} in the backfill, no "
+          f"other kernel")
     host = np.array([h["condition_numbers"] for h in res.nll_history])
     check(host.shape == (C7_ITERS, C7_AGENTS) and not bool(np.isnan(host).any()),
           f"the backfill left a condition number out: {host.shape}")
@@ -3433,11 +3467,13 @@ def config7_wide_phase(dev, smi: str, full, ref) -> dict:
     want_k3 = C7_ITERS * (1 + P) + C7_ITERS + rescores
     want_f64 = backfill_launches(C7_ITERS, C7_AGENTS)
     eig = backfill_eig_counts(C7_ITERS, [len(x) for x, _ in splits])
+    want_pair = C7_ITERS * P
     check(counts["K3"] == want_k3 and counts["K1_f64"] == want_f64 and counts_hold(counts, eig)
-          and sum(counts.values()) == want_k3 + want_f64 + sum(eig.values()),
+          and counts["pair_contract"] == want_pair
+          and sum(counts.values()) == want_k3 + want_f64 + want_pair + sum(eig.values()),
           f"config #7 at 12 qubits launches {counts}: want K3 = {C7_ITERS}*(1+{P}) + "
-          f"{C7_ITERS} + {rescores}, K1_f64 = {want_f64} and {eig} (the backfill), no other "
-          f"kernel")
+          f"{C7_ITERS} + {rescores}, pair_contract = {want_pair}, K1_f64 = {want_f64} and "
+          f"{eig} (the backfill), no other kernel")
     check(wide == {"K1": 0, "K1_f64": want_f64, "K3": want_k3},
           f"config #7 at 12 qubits counts wide launches {wide}: want every K3 and K1_f64 "
           f"launch ({want_k3}, {want_f64})")
@@ -3493,9 +3529,10 @@ def config7_wide_phase(dev, smi: str, full, ref) -> dict:
         config.use_fusion = "auto"
     off_rescores = sum(h["solver"] == "float64-rescue" for h in off.cv_history)
     want_k1 = (1 + P) + 1 + off_rescores
-    check(off_counts["K1"] == want_k1 and sum(off_counts.values()) == want_k1,
+    check(off_counts["K1"] == want_k1 and off_counts["pair_contract"] == P
+          and sum(off_counts.values()) == want_k1 + P,
           f"config #7 at 12 qubits with fusion off launches {off_counts}: want K1 = 1 + {P} + "
-          f"1 + {off_rescores} and no other kernel")
+          f"1 + {off_rescores}, pair_contract = {P} and no other kernel")
     check(off_wide == {"K1": want_k1, "K1_f64": 0, "K3": 0},
           f"config #7 at 12 qubits with fusion off counts wide launches {off_wide}: want "
           f"K1 = {want_k1}")
@@ -3559,9 +3596,11 @@ def config7_wide_fixture_phase(dev, ref) -> dict:
     counts = K.launch_counts()
     rescores = sum(h["solver"] == "float64-rescue" for h in res.cv_history)
     want_k3 = C12_FIX_ITERS * (P + 2) + rescores + 2
-    check(counts["K3"] == want_k3 and sum(counts.values()) == counts["K3"],
+    want_pair = C12_FIX_ITERS * P
+    check(counts["K3"] == want_k3 and counts["pair_contract"] == want_pair
+          and sum(counts.values()) == want_k3 + want_pair,
           f"12-qubit fixture launches {counts}: want K3 = {C12_FIX_ITERS}*({P}+2) + "
-          f"{rescores} + 2 and no other kernel")
+          f"{rescores} + 2, pair_contract = {C12_FIX_ITERS}*{P} and no other kernel")
     nll_at_ref = config7_agent_nll_at(spec, splits, ref["z_trajectory"][:C12_FIX_ITERS], dev,
                                       cfg.noise_std)
     z = np.array([h["consensus_params"] for h in res.cv_history])
@@ -3630,10 +3669,13 @@ def run_e_at_reference_z(flags, split, ref, device) -> dict:
 
 
 def run_e_launches_expected(summary, num_parameters: int, sizes) -> dict:
-    """Run E's launches: K3 as in runs C and D; K1 float64 once an agent and
+    """Run E's launches: K3 as in runs C and D; the streamed gradient's
+    contraction once a parameter and step (runs C and D regularize each
+    shifted Gram, so they keep the PyTorch loop); K1 float64 once an agent and
     16 z rows in the backfill and once in the noise fit; and the backfill's
     eigenvalue counts over agents of ``sizes`` rows."""
     return {"K3": scale_out_launches_expected(summary, num_parameters),
+            "pair_contract": summary["iterations"] * num_parameters,
             "K1_f64": backfill_launches(summary["iterations"], summary["config"]["n_agents"]) + 1,
             **nonzero(backfill_eig_counts(summary["iterations"], sizes))}
 
@@ -3837,6 +3879,151 @@ def eig_phase(dev, smi: str) -> dict:
             "fit_backfill_eigvalsh_ms": fit_plain_ms, "nan_eigvalsh": nan_eigvalsh}
 
 
+# the streamed gradient's contraction kernel, as ptxas and the profiler name it
+PAIR_ENTRY = "shift_pair_contract_kernel"
+PAIR_REPS = 20
+PAIR_GRAD_TOL = 1e-6   # of the largest component: phase 11b's streamed = central bar
+# the kernel's error against g_p in float64 (the plain version on the features
+# upcast), at most this multiple of the plain version's own: a bar that holds
+# whatever order PyTorch's float32 sums take
+PAIR_F64_RATIO = 2.0
+PAIR_OPS_PER_ENTRY = 12  # float32 operations of an entry and sign besides its 2 D in the dot
+
+
+def pair_bound(sizes, D: int, A: int, nmax: int):
+    """The contraction's least time (ms, bound by): the bracket's real rows
+    read once (sum n_a^2 doubles) and the features (A x 2 x nmax x D floats)
+    at the HBM rate, or the float32 work of the Gram pair's lower triangle
+    (dK is symmetric: n_a (n_a + 1) / 2 entries, two signs, 2 D + 12
+    operations each) at the FP32 rate, whichever is larger."""
+    nbytes = 8 * sum(n * n for n in sizes) + 4 * A * 2 * nmax * D
+    ops = sum(n * (n + 1) // 2 for n in sizes) * 2 * (2 * D + PAIR_OPS_PER_ENTRY)
+    return bound_ms(nbytes, ops)
+
+
+def pair_phase(dev, smi: str) -> dict:
+    """Phase 21: the streamed gradient's contraction kernel (ops/cuda_pair.py,
+    csrc/shift_pair_contract.cu) at one parameter of config #7 at full width
+    (11b's 49,999 rows over 64 agents of 717-844 rows) at 10 and 12 qubits:
+    the bracket from the agents' Grams at a z near 11b's, the features at the
+    first parameter's +-h shift. g_p against the plain version (the loop's
+    PyTorch arithmetic) within PAIR_GRAD_TOL of its largest component for
+    each nu, and no further from g_p in float64 than PAIR_F64_RATIO times
+    the plain version, identical bits on a rerun, a NaN in a real row of one agent
+    reaching that agent's g_p alone; then the kernel and the loop's body (the
+    Gram pair and its contraction) in turns with CUDA events, the kernel alone
+    from the profiler, and its bound (``pair_bound``)."""
+    import torch
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.models.gp.posterior import masked_nll_core
+    from dqgp_tpu_torch.models.kernels.quantum_kernel import gram_from_features
+    from dqgp_tpu_torch.ops import cuda_circuit as K
+    from dqgp_tpu_torch.ops import cuda_pair as CP
+    from dqgp_tpu_torch.parallel.consensus import agent_features, make_agent_batch
+
+    t_phase = time.time()
+    calls = K.launch_counts()["pair_contract"]
+    _, _, _, _, splits = config7_problem(C7_SAMPLES, C7_AGENTS)
+    sizes = [len(x) for x, _ in splits]
+    batch = make_agent_batch(splits, dev)
+    mask = batch.mask.to(torch.float64)
+    h, noise = float(np.pi / 8), 0.1
+    out = {}
+    for qubits in (C7_QUBITS, C12_QUBITS):
+        t0 = time.time()
+        spec = config7_spec(qubits)
+        P = spec.num_parameters
+        z = M.wrap(torch.as_tensor(np.random.RandomState(qubits).uniform(0, M.PERIOD, P),
+                                   device=dev))
+        z32 = z.to(torch.float32)
+        F0 = agent_features(spec, batch.X, z32[None])
+        _, bracket = masked_nll_core(gram_from_features(spec, F0)[:, 0].to(torch.float64),
+                                     batch.Y, mask, noise, compute_cond=False)
+        bracket = bracket.contiguous()
+        e0 = torch.zeros(P, dtype=torch.float32, device=dev)
+        e0[0] = h
+        pair = torch.remainder(torch.stack([z32 + e0, z32 - e0]), M.PERIOD)
+        F = agent_features(spec, batch.X, pair)
+        D = F.shape[-1]
+        check(CP.takes_kernel(spec, F.device, F.dtype, D, torch.float64),
+              f"config #7 at {qubits} qubits does not take the contraction kernel")
+        devs, f64 = {}, {}
+        for nu in CP.NU_CODES:
+            before = K.launch_counts()["pair_contract"]
+            got = CP.shift_pair_contract(F, bracket, mask, h, 1.0, nu)
+            again = CP.shift_pair_contract(F, bracket, mask, h, 1.0, nu)
+            torch.cuda.synchronize()
+            check(K.launch_counts()["pair_contract"] == before + 2,
+                  "a call is not one counted launch")
+            want = CP.shift_pair_contract_reference(F, bracket, mask, h, 1.0, nu)
+            scale = float(want.abs().max())
+            devs[nu] = float((got - want).abs().max()) / scale
+            check(torch.equal(got, again), f"nu={nu}: a rerun gives other bits")
+            check(devs[nu] <= PAIR_GRAD_TOL,
+                  f"nu={nu} at {qubits} qubits: g_p deviates {devs[nu]:.2e} of max |g| "
+                  f"from the plain version")
+            exact = CP.shift_pair_contract_reference(F.double(), bracket, mask, h, 1.0, nu)
+            big = float(exact.abs().max())
+            f64[nu] = (float((got - exact).abs().max()) / big,
+                       float((want - exact).abs().max()) / big)
+            del exact
+            check(f64[nu][0] <= max(PAIR_F64_RATIO * f64[nu][1], 1e-12),
+                  f"nu={nu} at {qubits} qubits: g_p deviates {f64[nu][0]:.2e} of max |g| "
+                  f"from float64, the plain version {f64[nu][1]:.2e}")
+        agent = 18  # inside the encoding's domain (the verify notes' gotcha)
+        Fn = F.clone()
+        Fn[agent, 0, sizes[agent] // 2, 1] = float("nan")
+        gn = CP.shift_pair_contract(Fn, bracket, mask, h)
+        g = CP.shift_pair_contract(F, bracket, mask, h)
+        others = torch.arange(C7_AGENTS, device=dev) != agent
+        check(bool(torch.isnan(gn[agent])) and torch.equal(gn[others], g[others]),
+              f"a NaN feature of agent {agent}: g_p {gn.tolist()}")
+
+        res = torch.empty(C7_AGENTS, dtype=torch.float64, device=dev)
+        m2 = mask[:, :, None] * mask[:, None, :]
+        bracket_t = bracket.transpose(-1, -2)
+        kernel = lambda: CP.shift_pair_contract(F, bracket, mask, h, out=res)  # noqa: E731
+        loop = lambda: CP.contract_pair(gram_from_features(spec, F), bracket_t, m2, h)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        kernel()
+        torch.cuda.synchronize()
+        kernel_mib = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        torch.cuda.reset_peak_memory_stats(dev)
+        loop()
+        torch.cuda.synchronize()
+        loop_mib = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        ms, loop_ms = _alternate_ms([kernel, loop], PAIR_REPS)
+        alone = _device_ms(kernel, PAIR_REPS, PAIR_ENTRY)
+        bound, by = pair_bound(sizes, D, C7_AGENTS, C7_NMAX)
+        lib = CP._library()
+        per_sm = lib.dqgp_shift_pair_contract_blocks_per_sm(D, CP.NU_CODES[1.5])
+        smem = lib.dqgp_shift_pair_contract_smem_bytes(D)
+        print(f"phase 21 contraction kernel at {qubits} qubits ({time.time() - t0:.2f} s) "
+              f"[{smi}]: one parameter, {C7_AGENTS} agents of {min(sizes)}-{max(sizes)} rows, "
+              f"D = {D}: {ms:.3f} ms a call (the tiles alone {alone:.3f}) vs the loop's Gram "
+              f"pair and contraction {loop_ms:.3f} ms ({loop_ms / ms:.1f}x); bound "
+              f"{bound:.4f} ms by {by}: {bound / alone:.1%} of it alone; {per_sm} blocks an SM "
+              f"of {smem} B shared memory; extra memory {kernel_mib:.1f} MiB vs the loop's "
+              f"{loop_mib:.1f} MiB; g_p vs plain, max |diff| / max |g| by nu "
+              f"{ {k: f'{v:.2e}' for k, v in devs.items()} } (tol {PAIR_GRAD_TOL}); vs "
+              f"float64, kernel / plain, by nu "
+              f"{ {k: f'{a:.2e} / {b:.2e}' for k, (a, b) in f64.items()} } (ratio bar "
+              f"{PAIR_F64_RATIO}), reruns identical, a NaN feature reaches its agent alone",
+              flush=True)
+        out[qubits] = {"ms": ms, "device_ms": alone, "plain_ms": loop_ms, "bound_ms": bound,
+                       "bound_by": by, "D": D, "blocks_per_sm": per_sm, "smem_bytes": smem,
+                       "max_rel_dev_by_nu": {str(k): v for k, v in devs.items()},
+                       "vs_float64_kernel_plain_by_nu": {str(k): v for k, v in f64.items()},
+                       "kernel_mib": kernel_mib, "loop_mib": loop_mib}
+    calls = K.launch_counts()["pair_contract"] - calls
+    print(f"phase 21 contraction kernel ({time.time() - t_phase:.2f} s): {calls} calls of "
+          f"its own checks and times", flush=True)
+    return {**out[C7_QUBITS], "phase21_calls": calls, "at_12_qubits": out[C12_QUBITS]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3871,6 +4058,10 @@ def main(argv=None) -> int:
                     help="phases 1, 2 and 20 (the batched eigenvalue kernel of the "
                          "condition-number backfill against eigvalsh) only, without the "
                          "result lines")
+    ap.add_argument("--pair", action="store_true",
+                    help="phases 1, 2 and 21 (the streamed gradient's contraction kernel "
+                         "against its plain version and the loop, and their times) only, "
+                         "without the result lines")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3887,7 +4078,7 @@ def main(argv=None) -> int:
     from dqgp_tpu_torch.models.kernels.quantum_kernel import (
         gram_from_features, kernel_features)
     from dqgp_tpu_torch.ops import cuda_circuit as K
-    from dqgp_tpu_torch.ops import cuda_eig
+    from dqgp_tpu_torch.ops import cuda_eig, cuda_pair
     from dqgp_tpu_torch.ops.fusion import fuse_circuit
     from dqgp_tpu_torch.parallel.consensus import make_admm_step, make_agent_batch
 
@@ -3903,10 +4094,11 @@ def main(argv=None) -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.time()
-    builds = build_kernels(K.SOURCES + (cuda_eig.SOURCE,) + FIRST_LAYOUTS)
+    builds = build_kernels(K.SOURCES + (cuda_eig.SOURCE, cuda_pair.SOURCE) + FIRST_LAYOUTS)
     for src in K.SOURCES:
         K._library(src)
     cuda_eig._library()
+    cuda_pair._library()
     for src in FIRST_LAYOUTS:
         _first_layout_library(src)
     # each warp kernel's sources: 1-10 qubits, then 11-12 where it goes there
@@ -3940,7 +4132,8 @@ def main(argv=None) -> int:
             ("vjp", K.vjp_geometry(c7_circuit), C7_QUBITS, "config #7")]
     per_sm = [K.blocks_per_sm(name, geo, n) for name, geo, n, _ in geos]
     print(f"phase 2 build ({time.time() - t0:.2f} s): "
-          + " | ".join(builds[src][0] for src in K.SOURCES + (cuda_eig.SOURCE,) + FIRST_LAYOUTS)
+          + " | ".join(builds[src][0] for src in K.SOURCES + (cuda_eig.SOURCE, cuda_pair.SOURCE)
+                       + FIRST_LAYOUTS)
           + " | ptxas by qubit count (registers, stack B, spill stores B, spill loads B): "
           + "; ".join(f"{name}: " + (", ".join(f"{n}: {info}" for n, info in r.items())
                                      or "reused") for name, r in regs.items())
@@ -3965,6 +4158,14 @@ def main(argv=None) -> int:
                       for C in cuda_eig.CLUSTER_SIZES), flush=True)
     check(eig_regs is None or eig_regs[1:] == (0, 0, 0),
           f"the batched eigenvalue kernel uses a stack frame or spills: {eig_regs}")
+    pair_log = builds[cuda_pair.SOURCE][1]
+    pair_regs = warp_ptxas(pair_log, PAIR_ENTRY)  # by nu code
+    print(f"phase 2 contraction kernel, ptxas by nu code (registers, stack B, spill stores B, "
+          f"spill loads B): {pair_regs or 'reused'}", flush=True)
+    # three blocks an SM hold it to 80 registers and a 32-byte frame, which
+    # measured faster than two without one (csrc/shift_pair_contract.cu)
+    check(not pair_log or set(pair_regs) == set(cuda_pair.NU_CODES.values()),
+          f"ptxas reported contraction kernels {sorted(pair_regs)}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -3995,8 +4196,10 @@ def main(argv=None) -> int:
         wide_phase(dev, smi, rand_angles)
     if args.eig:
         eig_phase(dev, smi)
+    if args.pair:
+        pair_phase(dev, smi)
     if (args.k1 or args.k3 or args.states or args.vjp or args.cond or args.cli or args.scale_out
-            or args.q12 or args.eig):
+            or args.q12 or args.eig or args.pair):
         return 0
 
     # 3. K1 vs plain on the card ----------------------------------------------
@@ -4225,6 +4428,7 @@ def main(argv=None) -> int:
     adjoint = autodiff_phase(dev, smi, rand_angles)
 
     k3, adjoint7, cond7, c7 = config7_phases(dev, smi, rand_angles)
+    pair_launches = c7["pair_launches"]   # 11b's full run: C7_ITERS * P
 
     # 17. the port's CLI: the README's SRTM command and config #5 -----------
     cli_launches = cli_phase(dev, smi)
@@ -4240,6 +4444,9 @@ def main(argv=None) -> int:
 
     # 20. the batched eigenvalue kernel of the condition-number backfill ------
     eig = eig_phase(dev, smi)
+
+    # 21. the streamed gradient's contraction kernel ---------------------------
+    pair = pair_phase(dev, smi)
 
     print(json.dumps({"kernels": [
         {"name": "pauli_features (K1)", "route": "cuda",
@@ -4320,6 +4527,12 @@ def main(argv=None) -> int:
                           "eigenvalues on the host's LAPACK",
          "launches": counts["eig"], **eig,
          "library_ms": eig["plain_ms"]},
+        {"name": "shift_pair_contract (the streamed gradient's contraction)", "route": "cuda",
+         "source": "dqgp_tpu_torch/csrc/shift_pair_contract.cu",
+         "replaces": None,
+         "replaces_note": "no TPU kernel: the JAX package forms the shifted Gram pair and "
+                          "contracts it in XLA",
+         **pair, "launches": pair_launches, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

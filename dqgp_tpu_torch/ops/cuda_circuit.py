@@ -70,7 +70,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from . import _build, cuda_eig
+from . import _build, cuda_eig, cuda_pair
 from .circuit import Circuit
 from .fusion import (
     DiagOp, PermOp, SU2Op, diag_patterns_concat, fuse_circuit, state_from_angles_fused,
@@ -765,6 +765,10 @@ _COUNTERS = {
     "eig": (cuda_eig.gram_extremes, "launches"),
     "eig_grams": (cuda_eig.gram_extremes, "grams"),
     "eig_eigvalsh_grams": (cuda_eig.gram_extremes, "eigvalsh_grams"),
+    # the streamed gradient's contraction kernel (cuda_pair): a call a
+    # parameter, counted once although a call is two launches (the tiles,
+    # then the agents' sums)
+    "pair_contract": (cuda_pair.shift_pair_contract, "launches"),
 }
 
 
@@ -773,8 +777,10 @@ _wide_launches = dict.fromkeys(WIDE_SOURCES, 0)
 
 
 def launch_counts() -> dict:
-    """Every wrapper's launch count, by kernel and precision, and the
-    batched eigenvalue kernel's Gram counts."""
+    """Every wrapper's launch count, by kernel and precision, the batched
+    eigenvalue kernel's Gram counts, and the streamed gradient's
+    contraction calls (``pair_contract`` counts calls, not launches: a
+    call is two)."""
     return {k: getattr(fn, attr) for k, (fn, attr) in _COUNTERS.items()}
 
 

@@ -15,9 +15,12 @@ Two ways to form the gradient (``grad_method``), as in the JAX package:
 * ``"central"`` materializes the 2P+1 shifted Grams of every agent, whose
   angle rows all go through ONE circuit-kernel launch: O(A P N^2) memory.
 * ``"streamed"`` forms the Gram at wrap(z) first (one launch), then for each
-  parameter p the +h and -h shifted Grams of all agents (one launch of
-  2 A N rows), differences them in float32, upcasts, and contracts them with
-  the solve bracket at once: O(A N^2) live memory whatever P is.
+  parameter p the +h and -h shifted features of all agents (one launch of
+  2 A N rows) and from them g_p: the shifted Gram pair, differenced in
+  float32, upcast and contracted with the solve bracket at once, O(A N^2)
+  live memory whatever P is. On the card, for float32 features of the
+  projected Matern kernel and a float64 GP side, one hand-written kernel a
+  parameter (``ops.cuda_pair``) does that without storing the pair.
 
 Both give the same gradient up to the order of the final sums. The third,
 ``"autodiff"``, is the exact gradient of the NLL at wrap(z) by
@@ -45,6 +48,7 @@ from ..models.kernels.quantum_kernel import (
     gram_and_shift_grads,
     gram_from_features,
 )
+from ..ops import cuda_pair
 from ..ops.statevector import angle_matrix
 
 GRAD_METHODS = ("central", "streamed", "autodiff")
@@ -88,15 +92,20 @@ def make_agent_batch(agent_data_splits: Sequence[Tuple[np.ndarray, np.ndarray]],
     return AgentBatch(*(torch.as_tensor(a, device=device) for a in (X, Y, mask)))
 
 
-def agent_grams(spec: QuantumKernelSpec, X: torch.Tensor,
-                thetas: torch.Tensor) -> torch.Tensor:
-    """Grams (A, S, N, N) of every agent's shard X (A, N, D) at each of S
+def agent_features(spec: QuantumKernelSpec, X: torch.Tensor,
+                   thetas: torch.Tensor) -> torch.Tensor:
+    """Features (A, S, N, F) of every agent's shard X (A, N, D) at each of S
     parameter vectors thetas (S, P), with all A*S*N angle rows in ONE
-    feature call; float32 like the features."""
+    feature call (float32 angles)."""
     angles = angle_matrix(spec.circuit, X[:, None], thetas, torch.float32)  # (A, S, N, G)
     flat = features_from_angles(spec, angles.reshape(-1, angles.shape[-1]))
-    feats = flat.reshape(*angles.shape[:-1], flat.shape[-1])
-    return gram_from_features(spec, feats)
+    return flat.reshape(*angles.shape[:-1], flat.shape[-1])
+
+
+def agent_grams(spec: QuantumKernelSpec, X: torch.Tensor,
+                thetas: torch.Tensor) -> torch.Tensor:
+    """Grams (A, S, N, N) of ``agent_features``; float32 like the features."""
+    return gram_from_features(spec, agent_features(spec, X, thetas))
 
 
 def streamed_nll_and_grad(spec: QuantumKernelSpec, batch: AgentBatch,
@@ -110,22 +119,35 @@ def streamed_nll_and_grad(spec: QuantumKernelSpec, batch: AgentBatch,
     are formed and wrapped in float32, as ``shift_parameter_batch`` forms
     them, and each dK_p = (K_+ - K_-) / 2h is differenced in float32 before
     the upcast, so the gradient is the central path's up to the order of
-    its sums."""
-    K = agent_grams(spec, batch.X, z32[None])[:, 0]
+    its sums.
+
+    Where ``cuda_pair.takes_kernel`` holds (float32 features on the card, a
+    float64 GP side, the projected Matern kernel at a closed-form nu, no
+    regularization), g_p comes from the shifted features through one
+    ``cuda_pair.shift_pair_contract`` call, written into column p of the
+    gradient on the card; everywhere else from the Gram pair in PyTorch."""
+    F0 = agent_features(spec, batch.X, z32[None])
+    K = gram_from_features(spec, F0)[:, 0]
     mask = batch.mask.to(dtype)
     res, bracket = masked_nll_core(K.to(dtype), batch.Y.to(dtype), mask, noise_std,
                                    compute_cond=compute_cond, fallback=fallback)
     del K
+    P = z32.shape[0]
+    eye = torch.eye(P, dtype=z32.dtype, device=z32.device)
+    shifts = (torch.remainder(torch.stack([z32 + h * eye[p], z32 - h * eye[p]]), M.PERIOD)
+              for p in range(P))
+    if cuda_pair.takes_kernel(spec, F0.device, F0.dtype, F0.shape[-1], dtype):
+        length_scale, nu = cuda_pair.matern_params(spec)
+        bracket = bracket.contiguous()
+        grad = torch.empty((batch.X.shape[0], P), dtype=dtype, device=z32.device)
+        for p, pair in enumerate(shifts):
+            cuda_pair.shift_pair_contract(agent_features(spec, batch.X, pair), bracket, mask, h,
+                                          length_scale, nu, out=grad[:, p])
+        return res._replace(grad=grad)
     m2 = mask[:, :, None] * mask[:, None, :]
     bracket_t = bracket.transpose(-1, -2)  # g_p = 1/2 sum_ij bracket_ij dK_p,ji
-    eye = torch.eye(z32.shape[0], dtype=z32.dtype, device=z32.device)
-    grads = []
-    for p in range(z32.shape[0]):
-        pair = torch.remainder(torch.stack([z32 + h * eye[p], z32 - h * eye[p]]), M.PERIOD)
-        Kpm = agent_grams(spec, batch.X, pair)                         # (A, 2, N, N)
-        dk = ((Kpm[:, 0] - Kpm[:, 1]) / (2.0 * h)).to(dtype) * m2
-        del Kpm
-        grads.append(0.5 * torch.sum(bracket_t * dk, dim=(-2, -1)))
+    grads = [cuda_pair.contract_pair(agent_grams(spec, batch.X, pair), bracket_t, m2, h)
+             for pair in shifts]                                       # pairs (A, 2, N, N)
     return res._replace(grad=torch.stack(grads, dim=-1))
 
 

@@ -3,8 +3,9 @@ float32 and float64, 1-12 qubits), states (K2, float32 and float64),
 fused-program Pauli features (K3, 1-12 qubits), fused-program states (K4)
 and the adjoint (the backward of K1 and K2) — against their plain PyTorch
 versions, on CUDA tensors; the batched eigenvalue kernel of the
-condition-number backfill against torch.linalg.eigvalsh; and the
-manifold optimizer on points on the card. They skip where there is no card.
+condition-number backfill against torch.linalg.eigvalsh; the streamed
+gradient's contraction kernel against its plain version and the loop; and
+the manifold optimizer on points on the card. They skip where there is no card.
 
 On a GPU host, where JAX need not be installed (the port does not use it),
 bypass conftest.py, which imports JAX:
@@ -176,7 +177,8 @@ def test_card_fidelity_features_go_through_k2_and_k4(cuda, monkeypatch):
     TQ.features_from_angles(spec, a)
     assert K1.launch_counts() == {"K1": 0, "K1_f64": 0, "K2": 1, "K2_f64": 1, "K3": 0,
                                   "K4": 1, "K1_vjp": 0, "K2_vjp": 0, "eig": 0,
-                                  "eig_grams": 0, "eig_eigvalsh_grams": 0}
+                                  "eig_grams": 0, "eig_eigvalsh_grams": 0,
+                                  "pair_contract": 0}
 
 
 @pytest.mark.parametrize("enc", ENCODING_TYPES)
@@ -214,7 +216,8 @@ def test_card_fused_projected_features_go_through_k3(cuda, monkeypatch):
     TQ.features_from_angles(spec, a)
     assert K1.launch_counts() == {"K1": 1, "K1_f64": 1, "K2": 0, "K2_f64": 0, "K3": 1,
                                   "K4": 0, "K1_vjp": 0, "K2_vjp": 0, "eig": 0,
-                                  "eig_grams": 0, "eig_eigvalsh_grams": 0}
+                                  "eig_grams": 0, "eig_eigvalsh_grams": 0,
+                                  "pair_contract": 0}
 
 
 def _cheb_problem(kernel_type="projected", n=60, agents=2, qubits=3, enc=None):
@@ -609,3 +612,235 @@ def test_wide_launches_are_counted_on_card(cuda):
     finally:
         K1.reset_launch_counts()
     assert K1.wide_launch_counts() == {"K1": 0, "K1_f64": 0, "K3": 0}
+
+
+# the streamed gradient's contraction kernel (ops/cuda_pair.py) against its
+# plain version, the loop's PyTorch arithmetic: within 1e-6 of the largest
+# component (phase 11b's streamed = central bar), the sums' order apart
+
+PAIR_TOL = 1e-6
+
+
+def _pair_problem(cuda, qubits, sizes, measurement="XYZ", seed=0):
+    """(spec, batch, z32, F, bracket, mask): agents of ``sizes`` rows of
+    chebyshev ``qubits`` x 2, the bracket of their Grams at a random z, the
+    features at parameter 0's +-h shift."""
+    import numpy as np
+
+    from dqgp_tpu_torch import manifold as M
+    from dqgp_tpu_torch.models.gp.posterior import masked_nll_core
+    from dqgp_tpu_torch.parallel import consensus as C
+
+    rng = np.random.RandomState(seed)
+    splits = [(rng.uniform(-1, 1, (n, 2)), rng.standard_normal(n)) for n in sizes]
+    spec = QuantumKernelSpec(circuit=build_circuit("chebyshev", qubits, 2, 2),
+                             kernel_type="projected", outer_kernel="matern",
+                             measurement=measurement)
+    batch = C.make_agent_batch(splits, cuda)
+    P = spec.num_parameters
+    z32 = torch.as_tensor(rng.uniform(0, M.PERIOD, P), dtype=torch.float32, device=cuda)
+    F0 = C.agent_features(spec, batch.X, z32[None])
+    mask = batch.mask.double()
+    _, bracket = masked_nll_core(TQ.gram_from_features(spec, F0)[:, 0].double(), batch.Y, mask,
+                                 0.1, compute_cond=False)
+    h = torch.zeros(P, dtype=torch.float32, device=cuda)
+    h[0] = 3.14159265358979 / 8
+    pair = torch.remainder(torch.stack([z32 + h, z32 - h]), M.PERIOD)
+    return spec, batch, z32, C.agent_features(spec, batch.X, pair), bracket.contiguous(), mask
+
+
+def _config7_sizes(agents=64):
+    import numpy as np
+
+    sizes = np.random.RandomState(7).randint(717, 845, agents).tolist()
+    sizes[3] = 844
+    return sizes
+
+
+def _pair_dev(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+# the kernel's error against g_p in float64 (the plain version on the
+# features upcast) may be at most this multiple of the loop's: a bar that
+# holds whatever order PyTorch's float32 sums take
+PAIR_F64_RATIO = 2.0
+
+
+def _hold_to_float64(got, want, F, bracket, mask, h, ls=1.0, nu=1.5):
+    from dqgp_tpu_torch.ops import cuda_pair as CP
+
+    exact = CP.shift_pair_contract_reference(F.double(), bracket, mask, h, ls, nu)
+    kernel_err, loop_err = _pair_dev(got, exact), _pair_dev(want, exact)
+    assert kernel_err <= max(PAIR_F64_RATIO * loop_err, 1e-12), (nu, kernel_err, loop_err)
+
+
+@pytest.mark.parametrize("D", [1, 3, 9, 16, 30, 36, 63])
+def test_torch_sums_a_feature_row_as_the_contraction_kernel_does(cuda, D):
+    """The kernel's squared norms follow ``torch.sum(F * F, -1)`` on the
+    card bit for bit (the Matern of nearly equal rows reads their ulps):
+    lane x of W, the largest power of 2 <= D, adds products x and x + W,
+    then the lanes add down at W / 2, ..., 1. A PyTorch whose reduction
+    sums otherwise fails here first."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    F = torch.randn((3000, D), generator=gen, device=cuda)
+    e = F * F
+    W = 1 << (D.bit_length() - 1)
+    p = e[:, :W].clone()
+    p[:, : D - W] = p[:, : D - W] + e[:, W:D]
+    o = W // 2
+    while o > 0:
+        p[:, :o] = p[:, :o] + p[:, o:2 * o]
+        o //= 2
+    got = torch.sum(e, dim=-1)
+    assert torch.equal(p[:, 0], got), (
+        F.dtype, got.dtype, int((p[:, 0] != got).sum()), bool(torch.isnan(F).any()),
+        float((p[:, 0] - got).abs().max()))
+
+
+@pytest.mark.parametrize("qubits,nus", [(10, (0.5, 1.5, 2.5, float("inf"))), (12, (1.5,))])
+def test_pair_contract_at_config7_shapes_on_card(cuda, qubits, nus):
+    """64 agents of 717-844 rows at 10 and 12 qubits: g_p within PAIR_TOL of
+    the plain version for each nu and no further from g_p in float64 than
+    PAIR_F64_RATIO times the plain version, a rerun bit for bit, one counted
+    call."""
+    from dqgp_tpu_torch.ops import cuda_pair as CP
+
+    _, _, _, F, bracket, mask = _pair_problem(cuda, qubits, _config7_sizes())
+    h = 3.14159265358979 / 8
+    for nu in nus:
+        before = K1.launch_counts()["pair_contract"]
+        got = CP.shift_pair_contract(F, bracket, mask, h, 1.0, nu)
+        again = CP.shift_pair_contract(F, bracket, mask, h, 1.0, nu)
+        torch.cuda.synchronize()
+        assert K1.launch_counts()["pair_contract"] == before + 2
+        assert torch.equal(got, again)
+        want = CP.shift_pair_contract_reference(F, bracket, mask, h, 1.0, nu)
+        assert _pair_dev(got, want) <= PAIR_TOL
+        _hold_to_float64(got, want, F, bracket, mask, h, 1.0, nu)
+
+
+@pytest.mark.parametrize("sizes", [[1, 5, 64, 65, 130, 7], [63, 2, 64], [65, 65]])
+@pytest.mark.parametrize("qubits,measurement", [(1, "XYZ"), (3, "XY"), (5, "XYZ"), (4, "Z")])
+def test_pair_contract_at_small_ragged_shapes_on_card(cuda, sizes, qubits, measurement):
+    """Ragged agents (an odd Nmax takes the scalar bracket loads), widths
+    D = 3, 6, 15, 4, each nu and another length scale."""
+    from dqgp_tpu_torch.ops import cuda_pair as CP
+
+    _, _, _, F, bracket, mask = _pair_problem(cuda, qubits, sizes, measurement, seed=len(sizes))
+    h = 3.14159265358979 / 8
+    for nu in CP.NU_CODES:
+        for ls in (1.0, 0.7):
+            got = CP.shift_pair_contract(F, bracket, mask, h, ls, nu)
+            want = CP.shift_pair_contract_reference(F, bracket, mask, h, ls, nu)
+            assert _pair_dev(got, want) <= PAIR_TOL, (nu, ls)
+            _hold_to_float64(got, want, F, bracket, mask, h, ls, nu)
+
+
+def test_pair_contract_takes_every_width_in_any_order_on_card(cuda):
+    """Random features at D = 63 (shared memory above the default 48 KB),
+    then 9, then 63 again: each within PAIR_TOL of the plain version (the
+    launch asks the occupancy once a width and keeps the widest limit)."""
+    from dqgp_tpu_torch.ops import cuda_pair as CP
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    sizes, N = [70, 130, 3], 130
+    mask = torch.zeros((3, N), dtype=torch.float64, device=cuda)
+    for a, n in enumerate(sizes):
+        mask[a, :n] = 1.0
+    B = torch.randn((3, N, N), generator=gen, dtype=torch.float64, device=cuda)
+    for D in (CP.max_d(), 9, CP.max_d()):
+        F = torch.rand((3, 2, N, D), generator=gen, device=cuda)
+        got = CP.shift_pair_contract(F, B, mask, 0.39, 1.3, 2.5)
+        want = CP.shift_pair_contract_reference(F, B, mask, 0.39, 1.3, 2.5)
+        assert _pair_dev(got, want) <= PAIR_TOL, D
+
+
+def test_pair_contract_nan_in_a_real_row_reaches_its_agent(cuda):
+    from dqgp_tpu_torch.ops import cuda_pair as CP
+
+    _, _, _, F, bracket, mask = _pair_problem(cuda, 4, [90, 70, 80])
+    h = 3.14159265358979 / 8
+    g = CP.shift_pair_contract(F, bracket, mask, h)
+    for sign, value in ((0, float("nan")), (1, float("inf"))):
+        Fn = F.clone()
+        Fn[1, sign, 33, 2] = value
+        gn = CP.shift_pair_contract(Fn, bracket, mask, h)
+        want = CP.shift_pair_contract_reference(Fn, bracket, mask, h)
+        assert bool(torch.isnan(gn[1])) and bool(torch.isnan(want[1]))
+        assert torch.equal(gn[[0, 2]], g[[0, 2]])
+    Bn = bracket.clone()
+    Bn[2, 5, 60] = float("nan")
+    gb = CP.shift_pair_contract(F, Bn, mask, h)
+    assert bool(torch.isnan(gb[2])) and torch.equal(gb[:2], g[:2])
+
+
+def test_streamed_step_takes_the_kernel_once_a_parameter_on_card(cuda, monkeypatch):
+    """The streamed gradient on the card: P contraction calls, within
+    PAIR_TOL of the loop's gradient (the kernel's path refused), and of
+    the central one."""
+    from dqgp_tpu_torch.models.gp.posterior import masked_nll_and_grad
+    from dqgp_tpu_torch.ops import cuda_pair as CP
+    from dqgp_tpu_torch.parallel import consensus as C
+
+    spec, batch, z32, _, _, _ = _pair_problem(cuda, 10, [300, 257, 190])
+    h = 3.14159265358979 / 8
+    K1.reset_launch_counts()
+    got = C.streamed_nll_and_grad(spec, batch, z32, h, 0.1, compute_cond=False)
+    torch.cuda.synchronize()
+    counts = K1.launch_counts()
+    P = spec.num_parameters
+    assert counts["pair_contract"] == P and counts["K3"] == 1 + P
+    monkeypatch.setattr(CP, "takes_kernel", lambda *args: False)
+    loop = C.streamed_nll_and_grad(spec, batch, z32, h, 0.1, compute_cond=False)
+    assert K1.launch_counts()["pair_contract"] == P
+    assert _pair_dev(got.grad, loop.grad) <= PAIR_TOL
+    assert torch.equal(got.nll, loop.nll)
+    Kc, dKc = TQ.gram_and_shift_grads(spec, batch.X, z32, h)
+    central = masked_nll_and_grad(Kc.double(), dKc, batch.Y, batch.mask, 0.1,
+                                  compute_cond=False)
+    assert _pair_dev(got.grad, central.grad) <= PAIR_TOL
+
+
+def test_pair_contract_launch_is_one_span_on_card(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    from dqgp_tpu_torch import tracing
+    from dqgp_tpu_torch.ops import cuda_pair as CP
+
+    _, _, _, F, bracket, mask = _pair_problem(cuda, 3, [40, 30])
+    CP.shift_pair_contract(F, bracket, mask, 0.39)
+    torch.cuda.synchronize()
+    before = len(tracing.spans())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        CP.shift_pair_contract(F, bracket, mask, 0.39)
+        torch.cuda.synchronize()
+    names = [s.name for s in tracing.spans()[before:] if s.name.startswith("cuda_circuit.")]
+    assert names == ["cuda_circuit.launch:pair_contract"]
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("shift_pair_contract_kernel" in k for k in kernels), kernels
+
+
+def test_chained_streamed_training_replays_the_contraction_on_card(cuda):
+    """grad_method="streamed" with chain_iters=3 on the Matern path: the
+    contraction's launches captured in the CUDA graph (P calls a step), z,
+    theta and psi bit for bit the eager run's."""
+    import numpy as np
+
+    from dqgp_tpu_torch.driver import TrainConfig, train
+
+    spec, X, Y, splits = _cheb_problem()
+    P = spec.num_parameters
+    kw = dict(cv_folds=3, verbose=False, max_iter=7, grad_method="streamed")
+    K1.reset_launch_counts()
+    a = train(spec, splits, X, Y, TrainConfig(**kw), device=cuda)
+    assert K1.launch_counts()["pair_contract"] == 7 * P
+    b = train(spec, splits, X, Y, TrainConfig(chain_iters=3, **kw), device=cuda)
+    assert (b.iterations, b.converged_by) == (a.iterations, a.converged_by) == (7, "max_iter")
+    for f in ("z", "theta", "psi"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f), err_msg=f)
+    st = b.chain_stats
+    assert st["captured"] and st["replays"] == 3
+    # a step: the features at z and at each parameter's +-h, then the CV pass
+    assert st["launches_per_replay"] == {"K1": 3 * (P + 2), "pair_contract": 3 * P}
