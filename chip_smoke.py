@@ -9,9 +9,9 @@ Phases, one line each; any failure raises and exits non-zero:
 2. build   — nvcc builds the Pauli-feature (K1), states (K2), fused
              Pauli-feature (K3) and fused states (K4) kernels and the
              adjoint kernel (the backward of K1 and K2) for sm_90a, K1's
-             (both precisions) and K3's 11- and 12-qubit instantiations, and the
-             first layouts that phases 9, 13, 15a and 16 time beside their
-             redesigns (the adjoint's; K1's and K2's float64), one nvcc
+             (both precisions) and K3's 11- and 12-qubit instantiations, the
+             condition-number backfill's eigenvalue kernel and the streamed
+             gradient's contraction kernel, one nvcc
              each, all started together, with ptxas's register and
              spill report; for each of the instantiations (1-12 qubits of K1
              in float32 and float64 and of K3, 1-10 of K2 in both precisions,
@@ -87,9 +87,9 @@ Phases, one line each; any failure raises and exits non-zero:
              time beside K3's on the same program; the 900x900 fidelity
              Gram; the float64 kernels — K2 at the dataset's B=1000, K1 and
              K2 at 10 qubits (kyriienko, 1 layer) at B=1000 and B=22500 —
-             each in turns with its first layout and its plain complex128
-             version (a call), the two kernels alone (profiler), and the
-             float64 bound;
+             each in turns with its plain complex128 version (a call), the
+             kernel alone (profiler), and the float64 bound; at B=22500 each
+             kernel must beat its plain version;
 10. K3     — the fused Pauli-feature kernel against its plain version (the
              plain fused engine) and against K1's plain unfused version on
              the same CUDA tensors, max abs diff <= 8e-6: 8 families x
@@ -136,7 +136,7 @@ Phases, one line each; any failure raises and exits non-zero:
              where cond < 1e8 and in the reference's 1e12/1e15 bucket above;
              the backfill's time, the device-mode floors beside the host
              values, and the float64 kernels at the backfill's shapes in
-             turns with their first layouts and plain versions;
+             turns with their plain versions;
 14. chained — ``chain_iters``: the north star for 25 iterations in chunks
              of 5 and config #5 for 5 in one chunk, each a CUDA-graph replay
              of the chunk's steps and CV passes, against the same runs one
@@ -156,9 +156,9 @@ Phases, one line each; any failure raises and exits non-zero:
              autodiff steps' shapes (VJP_SHAPES: the north star's B=1,040 at
              4 qubits, config #5's B=900 at 6, states, config #7's B=54,016
              at 10, the plain version on slices there), within 5e-5 of
-             max(1, max |g|); at those shapes the kernel, its first layout
-             (``csrc/circuit_vjp_first_layout.cu``) and the plain version in
-             turns, each kernel alone from the profiler, and the bound;
+             max(1, max |g|); at those shapes the kernel and the plain
+             version in turns, the kernel alone from the profiler, and the
+             bound;
              (b) the north star for 3 iterations with grad_method="autodiff"
              (K1 forward, the adjoint kernel backward, in every step; K1 in
              the CV passes) against the JAX fixture's run: z within 5e-3,
@@ -184,7 +184,7 @@ Phases, one line each; any failure raises and exits non-zero:
              shapes (one 16-row and one 9-row chunk an agent, 128 launches):
              total ms, K1 float64's and the eigvalsh's device ms, peak
              memory; K1 float64 at the 16-row chunk's B=13,504 in turns with
-             its first layout and plain version.
+             its plain version.
 
 17. cli    — the port's CLI (``dqgp_tpu_torch.cli``) on the card at full
              width, against the JAX package's CLI on the same flags
@@ -332,7 +332,6 @@ runs phases 1, 2 and 21 only (no result lines): the streamed gradient's
 contraction kernel.
 """
 
-import functools
 import hashlib
 import json
 import os
@@ -428,9 +427,6 @@ AUTODIFF_ITERS = 3                   # phase 15
 AUTODIFF_GRAD_TOL = 1e-3             # of the largest component: float32 features on both
                                      # sides, whose last ulps the NLL solve amplifies
 VJP_TOL = 5e-5                       # float32 adjoint vs plain autograd, of max(1, max |g|)
-FIRST_LAYOUT_VJP = "circuit_vjp_first_layout.cu"  # the adjoint's first layout, timed in 15a
-F64_FIRST_LAYOUT = "circuit_f64_first_layout.cu"  # K1's and K2's float64 first layout, timed
-FIRST_LAYOUTS = (FIRST_LAYOUT_VJP, F64_FIRST_LAYOUT)  # in phases 9, 13 and 16
 # angles that phase 6 sets among the random float64 ones: large (the float64
 # sin_cos's Payne-Hanek reduction from 2^31 up) and next to multiples of pi/2
 F64_SPECIAL_ANGLES = (1e6, -1e6, 1e15, -1e15, 1e300, -1e300, 2.0 ** 31, np.pi / 2, np.pi,
@@ -1134,8 +1130,7 @@ def time_k3(rand_angles, smi: str) -> dict:
 # one; swaps and sign flips none.
 
 def gate_ops(circuit) -> int:
-    """The unfused gate sequence (statevector.cuh, and warp_state.cuh's
-    apply_gate: K1 and K2)."""
+    """The unfused gate sequence (warp_state.cuh's apply_gate: K1 and K2)."""
     from dqgp_tpu_torch.ops.circuit import CRX, CRY, CRZ, CX, CZ, H, RZZ
 
     dim, ops = circuit.dim, 0
@@ -1273,42 +1268,29 @@ def check_states(rand_angles) -> dict:
 
 
 def time_f64(name: str, circuit, angles, reps: int) -> dict:
-    """K1's or K2's float64 kernel (``name``) at one shape: its first layout,
-    the register layout and the plain complex128 version in turns within one
-    call (CUDA events, a call each), then the two kernels alone (the
-    profiler), and the float64 bound. The first layout is held to the new
-    kernel at F64_TOL on the way."""
+    """K1's or K2's float64 kernel (``name``) at one shape: the kernel and
+    its plain complex128 version in turns within one call (CUDA events, a
+    call each), then the kernel alone (the profiler), and the float64
+    bound."""
     from dqgp_tpu_torch.ops import cuda_circuit as K
 
-    new, plain, first, bound = {
-        "K1_f64": (K.pauli_features_from_angles, K.pauli_features_reference,
-                   pauli_features_f64_first_layout, k1_bound),
-        "K2_f64": (K.states_from_angles, K.states_reference, states_f64_first_layout,
-                   k2_bound)}[name]
-    calls = [lambda: first(circuit, angles), lambda: new(circuit, angles),
-             lambda: plain(circuit, angles)]
-    e = float((calls[0]() - calls[1]()).abs().max())
-    check(e <= F64_TOL, f"{name}'s first layout and register layout differ by {e}")
-    first_ms, ms, plain_ms = _alternate_ms(calls, reps)
-    # each kernel by its own name: a stray record would halve the average
-    first_dev = _device_ms(calls[0], reps, {"K1_f64": "pauli_features_kernel_f64",
-                                            "K2_f64": "states_kernel_f64"}[name])
-    dev = _device_ms(calls[1], reps, WARP_KERNELS[name])
+    new, plain, bound = {
+        "K1_f64": (K.pauli_features_from_angles, K.pauli_features_reference, k1_bound),
+        "K2_f64": (K.states_from_angles, K.states_reference, k2_bound)}[name]
+    calls = [lambda: new(circuit, angles), lambda: plain(circuit, angles)]
+    ms, plain_ms = _alternate_ms(calls, reps)
+    dev = _device_ms(calls[0], reps, WARP_KERNELS[name])
     B = angles.shape[0]
     b, by = bound(circuit, B, 8)
     return {"name": name, "B": B, "qubits": circuit.num_qubits, "gates": circuit.num_gates,
-            "first_layout_ms": first_ms, "ms": ms, "plain_ms": plain_ms,
-            "first_layout_device_ms": first_dev, "device_ms": dev, "bound_ms": b,
-            "bound_by": by}
+            "ms": ms, "plain_ms": plain_ms, "device_ms": dev, "bound_ms": b, "bound_by": by}
 
 
 def f64_text(t: dict) -> str:
-    return (f"{t['name']} n={t['qubits']} G={t['gates']} B={t['B']}: first layout "
-            f"{t['first_layout_ms']:.4f} ms (alone {t['first_layout_device_ms']:.4f}) -> "
+    return (f"{t['name']} n={t['qubits']} G={t['gates']} B={t['B']}: "
             f"{t['ms']:.4f} ms (alone {t['device_ms']:.4f}) vs plain {t['plain_ms']:.3f} ms, "
             f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}): "
-            f"{t['bound_ms'] / t['device_ms']:.2%} of it alone (first layout "
-            f"{t['bound_ms'] / t['first_layout_device_ms']:.2%})")
+            f"{t['bound_ms'] / t['device_ms']:.2%} of it alone")
 
 
 def time_states(rand_angles, smi: str) -> dict:
@@ -1321,9 +1303,8 @@ def time_states(rand_angles, smi: str) -> dict:
     same program too: the fused body under its own bit map with a reduction
     where K4 has its store, which is what the states kernels' map and
     write-out cost. Then K2's float64 instantiation vs plain complex128 at
-    the dataset's 1000 rows, and the two float64 kernels (K1's and K2's
-    shared-memory layout) at 10 qubits against their plain versions and
-    float64 bounds. Returns each kernel's times (ms) and bound for the
+    the dataset's 1000 rows, and the two float64 kernels (K1's and K2's)
+    at 10 qubits against their plain versions and float64 bounds. Returns each kernel's times (ms) and bound for the
     kernels record."""
     import torch
 
@@ -1353,7 +1334,7 @@ def time_states(rand_angles, smi: str) -> dict:
                         *(_device_ms(f, 20) for f in calls))
         del a
     # the float64 kernels: K2 at the dataset's 1000 rows (config #5), K1 and
-    # K2 at 10 qubits (kyriienko, 1 layer), each beside its first layout
+    # K2 at 10 qubits (kyriienko, 1 layer), each beside its plain version
     k2_64 = time_f64("K2_f64", fid_circuit, rand_angles(fid_circuit, FID_SAMPLES, torch.float64),
                      20)
     c64 = build_circuit("kyriienko", F64_TIMING_QUBITS, 1, FID_LAYERS)
@@ -1363,10 +1344,10 @@ def time_states(rand_angles, smi: str) -> dict:
         f64 += [time_f64(name, c64, a64, 3 if B > FID_SAMPLES else 10)
                 for name in ("K1_f64", "K2_f64")]
         del a64
-    for t in f64[-2:]:  # at the step's row count the redesign must win outright
-        check(t["ms"] < min(t["plain_ms"], t["first_layout_ms"]),
-              f"{t['name']} at B={t['B']} is not faster than its plain version and its first "
-              f"layout: {f64_text(t)}")
+    for t in f64[-2:]:  # at the step's row count the kernel must win outright
+        check(t["ms"] < t["plain_ms"],
+              f"{t['name']} at B={t['B']} is not faster than its plain version: "
+              f"{f64_text(t)}")
     k2_b, k2_by = k2_bound(fid_circuit, FID_STEP_ROWS)
     k4_b, k4_by = k4_bound(fid_circuit, FID_STEP_ROWS)
     print(f"phase 9 states times ({time.time() - t0:.2f} s) [{smi}]: at B={FID_STEP_ROWS} "
@@ -1383,7 +1364,7 @@ def time_states(rand_angles, smi: str) -> dict:
                       f"({b4 / t4:.1%} of {b4:.5f}), K4/K2 {t4 / t2:.2f}, device {d2:.4f} / "
                       f"{d4:.4f} / K3 {d3:.4f} ms"
                       for n, (t2, b2, t4, b4, d2, d4, d3) in crossover.items())
-          + f"; the float64 kernels, first layout -> register layout vs plain complex128 "
+          + f"; the float64 kernels vs plain complex128 "
           f"(bounds against {FP64_OPS_PER_S / 1e12:.0f} TFLOP/s FP64): "
           + "; ".join(f64_text(t) for t in [k2_64] + f64), flush=True)
     cross = {str(n): dict(zip(("k2_ms", "k2_bound_ms", "k4_ms", "k4_bound_ms",
@@ -1634,9 +1615,8 @@ def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
     and one 9-row chunk an agent (128 launches), timed by CUDA events, with
     its peak allocated memory; on the same chunks again, K1 float64's
     device time (the profiler) and the float64 eigvalsh's (CUDA events);
-    the same backfill with K1 float64's first layout in the kernel's place;
-    and K1 float64 at the 16-row chunk's shape beside its first layout and
-    its plain version. Returns K1_f64's numbers for the kernels record."""
+    and K1 float64 at the 16-row chunk's shape beside its plain version.
+    Returns K1_f64's numbers for the kernels record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1745,22 +1725,6 @@ def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
             eigh_ms += ev[0].elapsed_time(ev[1])
             eigh_n += gram.shape[0]
             del gram
-    # the same backfill with K1 f64's first layout in the kernel's place, as
-    # the package ran it before the register layout
-    QK.pauli_features_from_angles = pauli_features_f64_first_layout
-    try:
-        ev[0].record()
-        cond_first = host_condition_numbers(spec, splits, Z, device=dev)
-        ev[1].record()
-        torch.cuda.synchronize()
-    finally:
-        QK.pauli_features_from_angles = saved
-    first_ms = ev[0].elapsed_time(ev[1])
-    # timed, not held: where a Gram is singular to float64 its smallest
-    # |eigenvalue| is rounding noise, which two float64 feature engines move
-    # by orders of magnitude, across the 1e15 bucket edge too; what is held
-    # to the plain engine is the C7_COND_HELD agents above, at the run's z
-    check(not bool(np.isnan(cond_first).any()), "the first layout's backfill left a value out")
     t16 = time_f64("K1_f64", spec.circuit, rand_angles(spec.circuit, 16 * n_max, torch.float64),
                    3)
     print(f"phase 16 backfill at 25 iterations' shapes ({time.time() - t0:.2f} s) [{smi}]: "
@@ -1771,12 +1735,11 @@ def config7_cond_phase(dev, smi: str, full, rand_angles) -> dict:
           f"ms on the device ({k1_dev / total_ms:.1%} of the backfill) and the float64 eigvalsh "
           f"of the {eigh_n} Grams (stacks of 16 or 9, n_i x n_i) {eigh_ms:.1f} ms "
           f"({eigh_ms / eigh_n:.2f} ms a Gram, {eigh_ms / total_ms:.1%}); peak allocated "
-          f"{peak:.2f} GiB; the same backfill through K1 f64's first layout {first_ms:.1f} ms; "
+          f"{peak:.2f} GiB; "
           + f64_text(t16), flush=True)
     return {"launches": counts["K1_f64"], "train_s": train_s, "backfill_25_ms": total_ms,
             "backfill_25_launches": counts25["K1_f64"], "backfill_25_k1_f64_device_ms": k1_dev,
             "backfill_25_eigvalsh_ms": eigh_ms, "backfill_25_peak_gib": peak,
-            "backfill_25_first_layout_ms": first_ms,
             "cond_rel_dev_vs_plain": rel, **t16}
 
 
@@ -2104,98 +2067,6 @@ def vjp_bound(circuit, B: int, output: str):
     return bound_ms(4 * B * (2 * circuit.num_gates + cot), B * vjp_ops(circuit, output))
 
 
-def vjp_first_layout_config(num_qubits: int, num_gates: int):
-    """(threads per block, padded angle-row stride, dynamic smem bytes) of
-    the adjoint's first layout: a thread's two float32 states as
-    [amplitude][thread] re and im planes and its angle row at an odd
-    stride; threads per block halve from 128 until that fits 200 KB."""
-    dim, gstride = 1 << num_qubits, num_gates | 1
-    tpb = 128
-    while tpb > 1 and tpb * 4 * (4 * dim + gstride) > 200 * 1024:
-        tpb //= 2
-    return tpb, gstride, tpb * 4 * (4 * dim + gstride)
-
-
-@functools.lru_cache(maxsize=None)
-def _first_layout_library(source: str = FIRST_LAYOUT_VJP):
-    import ctypes
-
-    from dqgp_tpu_torch.ops import _build
-
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib = _build.load(source)
-    signatures = {
-        FIRST_LAYOUT_VJP: {"dqgp_circuit_vjp_first_layout": [vp] * 4 + [i32] * 6 + [i64, vp]},
-        F64_FIRST_LAYOUT: {
-            "dqgp_pauli_features_f64_first_layout": [vp] * 3 + [i32] * 5 + [i64, vp],
-            "dqgp_states_f64_first_layout": [vp] * 3 + [i32] * 6 + [i64, vp]},
-    }[source]
-    for name, argtypes in signatures.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = i32
-    return lib
-
-
-def pauli_features_f64_first_layout(circuit, angles):
-    """K1's float64 kernel in the first layout (csrc/circuit_f64_first_layout.cu:
-    one thread a sample, the state in shared memory), launched as its
-    wrapper did before the register layout, for the times of phases 9, 13
-    and 16. It counts no launch: the package does not run it."""
-    import torch
-
-    from dqgp_tpu_torch.ops import cuda_circuit as K
-
-    B, G = angles.shape
-    out = torch.empty((B, 3 * circuit.num_qubits), dtype=torch.float64, device=angles.device)
-    tpb, gstride, smem = K.launch_config(circuit.num_qubits, G, 8)
-    err = _first_layout_library(F64_FIRST_LAYOUT).dqgp_pauli_features_f64_first_layout(
-        angles.data_ptr(), K._gate_table(circuit, angles.device).data_ptr(), out.data_ptr(),
-        B, G, circuit.num_qubits, tpb, gstride, smem, torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"the first-layout K1 float64 launch failed: error {err}")
-    return out
-
-
-def states_f64_first_layout(circuit, angles):
-    """K2's float64 kernel in the first layout (qubit q on bit q), as
-    ``pauli_features_f64_first_layout``."""
-    import torch
-
-    from dqgp_tpu_torch.ops import cuda_circuit as K
-
-    B, G = angles.shape
-    out = torch.empty((B, circuit.dim), dtype=torch.complex128, device=angles.device)
-    tpb, gstride, sstride, smem = K.states_launch_config(circuit.num_qubits, G, 8)
-    err = _first_layout_library(F64_FIRST_LAYOUT).dqgp_states_f64_first_layout(
-        angles.data_ptr(), K._gate_table(circuit, angles.device).data_ptr(), out.data_ptr(),
-        B, G, circuit.num_qubits, tpb, gstride, sstride, smem,
-        torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"the first-layout K2 float64 launch failed: error {err}")
-    return out
-
-
-def vjp_first_layout(circuit, angles, cotangent, output: str):
-    """The adjoint's first layout (csrc/circuit_vjp_first_layout.cu: one
-    thread a sample, both states in shared memory, qubit q on bit q for
-    both outputs), launched as its wrapper did, for phase 15a's times. It
-    counts no launch: the package does not run it."""
-    import torch
-
-    from dqgp_tpu_torch.ops import cuda_circuit as K
-
-    B, G = angles.shape
-    grad = torch.empty_like(angles)
-    cot = cotangent.contiguous()
-    if output == "states":
-        cot = torch.view_as_real(cot)
-    tpb, gstride, smem = vjp_first_layout_config(circuit.num_qubits, G)
-    err = _first_layout_library().dqgp_circuit_vjp_first_layout(
-        angles.data_ptr(), K._gate_table(circuit, angles.device).data_ptr(), cot.data_ptr(),
-        grad.data_ptr(), B, G, circuit.num_qubits, K.VJP_OUTPUTS.index(output), tpb, gstride,
-        smem, torch.cuda.current_stream().cuda_stream)
-    check(err == 0, f"the first-layout adjoint's launch failed: error {err}")
-    return grad
-
-
 def vjp_shape_circuit(what: str):
     """The circuit of phase 15a's shape ``what`` (VJP_SHAPES)."""
     from dqgp_tpu_torch.models.circuits import build_circuit
@@ -2213,11 +2084,10 @@ def check_vjp(rand_angles) -> dict:
     the same CUDA tensors, for 8 families x every qubit count 1..10 x batch
     {1, 130} x both outputs, plus each autodiff step's shape (VJP_SHAPES; at
     config #7's the plain version on the first and the last VJP_PLAIN_ROWS
-    rows of the launch), within VJP_TOL of max(1, max |plain|); the first
-    layout at those shapes too. Then at each shape the new kernel, the first
-    layout and the plain version timed in turns (a call by CUDA events; the
-    plain version on the slice at config #7's), the two kernels alone from
-    the profiler, and the bound. Returns the worst errors and {shape:
+    rows of the launch), within VJP_TOL of max(1, max |plain|). Then at each
+    shape the kernel and the plain version timed in turns (a call by CUDA
+    events; the plain version on the slice at config #7's), the kernel alone
+    from the profiler, and the bound. Returns the worst errors and {shape:
     record}."""
     import torch
 
@@ -2244,7 +2114,7 @@ def check_vjp(rand_angles) -> dict:
     cases = [(build_circuit(enc, n, NUM_FEATURES, 2), B, out)
              for enc in ENCODING_TYPES for n in WARP_QUBITS for B in (1, 130)
              for out in K.VJP_OUTPUTS]
-    worst = worst_abs = worst_first = 0.0
+    worst = worst_abs = 0.0
     for circuit, B, output in cases:
         a = rand_angles(circuit, B)
         cot = cotangent(circuit, B, output)
@@ -2262,43 +2132,34 @@ def check_vjp(rand_angles) -> dict:
         sliced = what == "config #7"
         rows = [slice(0, VJP_PLAIN_ROWS), slice(B - VJP_PLAIN_ROWS, B)] if sliced else [slice(0, B)]
         got = K.circuit_vjp(circuit, a, cot, output)
-        first = vjp_first_layout(circuit, a, cot, output)
         for r in rows:
             want = K.circuit_vjp_reference(circuit, a[r], cot[r], output)
             torch.cuda.synchronize()
             err, diff = hold(got[r], want, f"{what} B={B} rows {r.start}:{r.stop}")
             worst, worst_abs = max(worst, err), max(worst_abs, diff)
-            worst_first = max(worst_first, hold(first[r], want, f"{what}, first layout")[0])
-        del got, first
+        del got
         ap, cp = (a[:VJP_PLAIN_ROWS], cot[:VJP_PLAIN_ROWS]) if sliced else (a, cot)
         reps = 3 if sliced else 20
-        ms, first_ms, plain_ms = _alternate_ms(
+        ms, plain_ms = _alternate_ms(
             [lambda: K.circuit_vjp(circuit, a, cot, output),
-             lambda: vjp_first_layout(circuit, a, cot, output),
              lambda: K.circuit_vjp_reference(circuit, ap, cp, output)], reps)
         device_ms = _device_ms(lambda: K.circuit_vjp(circuit, a, cot, output), reps)
-        first_device_ms = _device_ms(lambda: vjp_first_layout(circuit, a, cot, output), reps)
         bound, bound_by = vjp_bound(circuit, B, output)
         shapes[what] = {"B": B, "qubits": circuit.num_qubits, "gates": circuit.num_gates,
                         "output": output, "ms": ms, "device_ms": device_ms,
-                        "first_layout_ms": first_ms, "first_layout_device_ms": first_device_ms,
                         "plain_ms": plain_ms, "plain_rows": len(ap), "bound_ms": bound,
                         "bound_by": bound_by}
         del a, cot
         torch.cuda.empty_cache()
     print(f"phase 15a adjoint vs plain ({time.time() - t0:.2f} s): {len(cases)} cases + "
           f"{len(VJP_SHAPES)} autodiff-step shapes, worst |diff| / max(1, max |plain|) "
-          f"{worst:.3e} (tol {VJP_TOL}), max abs diff {worst_abs:.3e}; the first layout at the "
-          f"shapes {worst_first:.3e}; " + "; ".join(
+          f"{worst:.3e} (tol {VJP_TOL}), max abs diff {worst_abs:.3e}; " + "; ".join(
               f"{what} B={t['B']} n={t['qubits']} G={t['gates']} {t['output']}: {t['ms']:.4f} ms "
-              f"a call, {t['device_ms']:.4f} alone vs first layout {t['first_layout_ms']:.4f} / "
-              f"{t['first_layout_device_ms']:.4f} vs plain (autograd, {t['plain_rows']} rows) "
+              f"a call, {t['device_ms']:.4f} alone vs plain (autograd, {t['plain_rows']} rows) "
               f"{t['plain_ms']:.4f}; bound {t['bound_ms']:.5f} ms ({t['bound_by']}), share "
-              f"{t['bound_ms'] / t['ms']:.2%} a call, {t['bound_ms'] / t['device_ms']:.2%} alone "
-              f"(first layout {t['bound_ms'] / t['first_layout_device_ms']:.2%})"
+              f"{t['bound_ms'] / t['ms']:.2%} a call, {t['bound_ms'] / t['device_ms']:.2%} alone"
               for what, t in shapes.items()), flush=True)
-    return {"max_abs_err": worst_abs, "max_rel_err": worst, "max_rel_err_first_layout": worst_first,
-            "by_shape": shapes}
+    return {"max_abs_err": worst_abs, "max_rel_err": worst, "by_shape": shapes}
 
 
 def autodiff_phase(dev, smi: str, rand_angles) -> dict:
@@ -2393,9 +2254,7 @@ def autodiff_phase(dev, smi: str, rand_angles) -> dict:
     ns = vjp["by_shape"]["north star"]
     return {"launches": counts["K1_vjp"], "max_abs_err": vjp["max_abs_err"],
             "max_rel_err": vjp["max_rel_err"],
-            "max_rel_err_first_layout": vjp["max_rel_err_first_layout"],
-            **{k: ns[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
-                                  "first_layout_ms", "first_layout_device_ms", "B")},
+            **{k: ns[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "B")},
             "by_shape": vjp["by_shape"],
             "northstar_iteration_ms": {"autodiff": ad_ms, "central": central_ms},
             "northstar_autodiff_step_device_ms": step_dev_ms,
@@ -4038,8 +3897,8 @@ def main(argv=None) -> int:
                     help="phases 1, 2, 6 and K2's and K4's times only, without the "
                          "result lines")
     ap.add_argument("--vjp", action="store_true",
-                    help="phases 1, 2 and 15a (the adjoint kernel against its plain version "
-                         "and its first layout, and their times) only, without the result lines")
+                    help="phases 1, 2 and 15a (the adjoint kernel against its plain version, "
+                         "and their times) only, without the result lines")
     ap.add_argument("--cond", action="store_true",
                     help="phases 1, 2 and 16 (config #7 with its condition numbers) only, "
                          "without the result lines")
@@ -4094,13 +3953,11 @@ def main(argv=None) -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.time()
-    builds = build_kernels(K.SOURCES + (cuda_eig.SOURCE, cuda_pair.SOURCE) + FIRST_LAYOUTS)
+    builds = build_kernels(K.SOURCES + (cuda_eig.SOURCE, cuda_pair.SOURCE))
     for src in K.SOURCES:
         K._library(src)
     cuda_eig._library()
     cuda_pair._library()
-    for src in FIRST_LAYOUTS:
-        _first_layout_library(src)
     # each warp kernel's sources: 1-10 qubits, then 11-12 where it goes there
     warp_sources = {name: (K.kernel_source(name, 1),) + (
         (K.WIDE_SOURCES[name],) if name in K.WIDE_SOURCES else ()) for name in WARP_KERNELS}
@@ -4132,8 +3989,7 @@ def main(argv=None) -> int:
             ("vjp", K.vjp_geometry(c7_circuit), C7_QUBITS, "config #7")]
     per_sm = [K.blocks_per_sm(name, geo, n) for name, geo, n, _ in geos]
     print(f"phase 2 build ({time.time() - t0:.2f} s): "
-          + " | ".join(builds[src][0] for src in K.SOURCES + (cuda_eig.SOURCE, cuda_pair.SOURCE)
-                       + FIRST_LAYOUTS)
+          + " | ".join(builds[src][0] for src in K.SOURCES + (cuda_eig.SOURCE, cuda_pair.SOURCE))
           + " | ptxas by qubit count (registers, stack B, spill stores B, spill loads B): "
           + "; ".join(f"{name}: " + (", ".join(f"{n}: {info}" for n, info in r.items())
                                      or "reused") for name, r in regs.items())
@@ -4461,8 +4317,7 @@ def main(argv=None) -> int:
          "replaces_note": "no Pallas kernel: the JAX package runs float64 features on its "
                           "complex128 XLA engine (state_from_angles :148, pauli_features :172)",
          "launches": cond7["launches"], "max_abs_err": err["K1_f64"],
-         **{k: cond7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
-                                  "first_layout_ms", "first_layout_device_ms", "B")},
+         **{k: cond7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms", "B")},
          "library_ms": None, "config7_cond": cond7,
          "launches_northstar_backfill": launches_f64, "backfill_shapes": backfill["K1_f64"],
          "launches_cli_run_a": cli_launches["A"]["K1_f64"]},
@@ -4479,8 +4334,7 @@ def main(argv=None) -> int:
                           "complex128 XLA engine (state_from_angles :148)",
          "launches": fcounts["K2_f64"], "max_abs_err": err["K2_f64"],
          **{k: st["K2_f64"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
-                                         "first_layout_ms", "first_layout_device_ms", "B",
-                                         "at_10_qubits")},
+                                         "B", "at_10_qubits")},
          "library_ms": None, "backfill_shapes": backfill["K2_f64"],
          "launches_cli_run_b": cli_launches["B"]["K2_f64"]},
         {"name": "pauli_features_fused (K3)", "route": "cuda",

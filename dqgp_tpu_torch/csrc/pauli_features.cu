@@ -57,9 +57,7 @@
 // sin_cos (CUDA's sincos, without its local array): features are held to
 // the plain engine at 1e-12. It runs for float64 features: the condition-
 // number backfill (driver.host_condition_numbers), 16 z rows of an agent a
-// launch. Its first layout (one thread a sample, the state in shared
-// memory) stays in circuit_f64_first_layout.cu for chip_smoke.py's timing
-// only.
+// launch.
 //
 // Interface: plain C, loaded with ctypes. The launches return
 // cudaGetLastError(), which the Python wrapper checks.

@@ -40,9 +40,7 @@
 // run of the output, which goes through the warp's buffer in shared memory
 // and out 512 B a store. Trig is warp_state.cuh's float64 sin_cos. It runs
 // once a dataset (B = 1000), for float64 features and in the condition-
-// number backfill of the fidelity kernel. Its first layout (one thread a
-// sample, the state in shared memory) stays in circuit_f64_first_layout.cu
-// for chip_smoke.py's timing only.
+// number backfill of the fidelity kernel.
 //
 // Interface: plain C, loaded with ctypes. The launches return
 // cudaGetLastError(), which the Python wrapper checks.

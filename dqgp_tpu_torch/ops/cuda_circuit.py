@@ -43,10 +43,6 @@ takes each forward kernel's map. The kernels see only those physical bits:
 the tables built here carry the map. The float64 instantiations of K1 and K2
 share every map, table and geometry rule with the float32 ones; only their
 registers a thread (``f64_min_blocks``) and staging words differ.
-K1's and K2's float64 kernels of the first layout (one thread a sample, the
-state in shared memory: ``csrc/circuit_f64_first_layout.cu``, sized by
-``launch_config`` and ``states_launch_config``) are launched only by
-``chip_smoke.py``, to time them beside the register layout.
 
 On a CUDA tensor each wrapper launches its kernel (built with nvcc at first
 use) inside the span ``cuda_circuit.launch:<key>`` (``tracing``; ``<key>``
@@ -93,7 +89,6 @@ MAX_QUBITS = {"K1": 12, "K2": ONE_WARP_QUBITS, "K3": 12, "K4": ONE_WARP_QUBITS,
 KERNEL_NAMES = {"K1": "Pauli-feature kernel (K1)", "K2": "states kernel (K2)",
                 "K3": "fused Pauli-feature kernel (K3)", "K4": "fused states kernel (K4)",
                 "vjp": "adjoint kernel (the backward of K1 and K2)"}
-_SMEM_BUDGET = 200 * 1024  # bytes a block may take (the card allows 227 KB)
 _WARP_THREADS = 256             # the warp kernels' launch bound
 _WARP_SMEM_PER_SM = 224 * 1024  # what an SM's resident blocks share of its 228 KB
 
@@ -210,57 +205,6 @@ def _gate_table(circuit: Circuit, device: torch.device,
                 states_layout: bool = False) -> torch.Tensor:
     """``gate_table`` on ``device``, built once."""
     return torch.as_tensor(gate_table(circuit, states_layout), device=device).contiguous()
-
-
-def _threads_per_block(smem_bytes) -> int:
-    """128 threads, halved until ``smem_bytes(threads)`` fits the budget."""
-    tpb = 128
-    while tpb > 1 and smem_bytes(tpb) > _SMEM_BUDGET:
-        tpb //= 2
-    return tpb
-
-
-def launch_config(num_qubits: int, num_gates: int,
-                  real_bytes: int = 8) -> tuple[int, int, int]:
-    """(threads per block, padded angle-row stride, dynamic smem bytes) of
-    K1's float64 kernel in the first layout (``csrc/circuit_f64_first_layout.cu``,
-    which only ``chip_smoke.py`` launches, to time it beside the register
-    layout).
-
-    A block holds its threads' states ([amplitude][thread] re and im planes)
-    and their angle rows, padded to an odd stride so the per-thread reads hit
-    distinct banks. Threads per block halve from 128 until that fits."""
-    dim = 1 << num_qubits
-    gstride = num_gates | 1
-
-    def smem(tpb):
-        return tpb * real_bytes * (2 * dim + gstride)
-
-    tpb = _threads_per_block(smem)
-    return tpb, gstride, smem(tpb)
-
-
-def states_launch_config(num_qubits: int, row_len: int,
-                         real_bytes: int = 8) -> tuple[int, int, int, int]:
-    """(threads per block, padded row stride, padded state stride, dynamic
-    smem bytes) of K2's float64 kernel in the first layout
-    (``csrc/circuit_f64_first_layout.cu``, launched only by ``chip_smoke.py``).
-
-    As K1's float64 kernel, but the [amplitude][thread] planes' stride is
-    padded to an odd word count (threads + 1), so the cooperative store's
-    reads down a column hit distinct banks."""
-    dim = 1 << num_qubits
-    rstride = row_len | 1
-
-    def smem(tpb):
-        return real_bytes * (2 * dim * (tpb | 1) + tpb * rstride)
-
-    tpb = _threads_per_block(smem)
-    if smem(tpb) > _SMEM_BUDGET:
-        raise ValueError(f"a {num_qubits}-qubit state with {row_len}-wide rows "
-                         f"exceeds the {_SMEM_BUDGET} B shared-memory budget of "
-                         f"one block")
-    return tpb, rstride, tpb | 1, smem(tpb)
 
 
 def _check_angles(circuit: Circuit, angles: torch.Tensor, kernel: str,

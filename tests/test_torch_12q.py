@@ -41,17 +41,10 @@ from dqgp_tpu_torch.convert import circuit_from_jax
 from dqgp_tpu_torch.ops import circuit as tc
 from dqgp_tpu_torch.ops import cuda_circuit as K
 from dqgp_tpu_torch.ops import fusion as tf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODEL_ATOL = 1e-12
 WIDE = (11, 12)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _angles(c, rows, seed):

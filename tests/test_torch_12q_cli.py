@@ -12,27 +12,21 @@ of the dense posterior.
 
 import json
 
-import torch
-
 import chip_smoke as cs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_run_e_at_cpu_size_holds_the_fixture(tmp_path):
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with open(cs.Q12_FIXTURE) as f:
-            ref = json.load(f)["run_e_cpu"]
-        flags = cs.RUN_E_CPU_FLAGS + ["--cond-mode", "host"]  # as the card resolves "auto"
-        assert ref["flags"] == flags
-        summary, stages, split, _ = cs.run_port_cli(flags + ["--device", "cpu"],
-                                                    str(tmp_path / "run_E.log"),
-                                                    cwd=str(tmp_path))
-        assert {"train", "backfill", "noise_fit", "predict_test", "predict_train"} <= set(stages)
-        dev = cs.hold_scale_out_run("E", summary, split, ref)
-        assert dev["Y"] <= cs.SCALE_OUT_Y_TOL
-        assert cs._cond_buckets(summary) == cs._cond_buckets(ref["summary"])
-        at_z = cs.run_e_at_reference_z(flags, split, ref, "cpu")
-        assert at_z["sigma_rel"] <= cs.SIGMA_RTOL
-    finally:
-        torch.set_num_threads(threads)
+    with open(cs.Q12_FIXTURE) as f:
+        ref = json.load(f)["run_e_cpu"]
+    flags = cs.RUN_E_CPU_FLAGS + ["--cond-mode", "host"]  # as the card resolves "auto"
+    assert ref["flags"] == flags
+    summary, stages, split, _ = cs.run_port_cli(flags + ["--device", "cpu"],
+                                                str(tmp_path / "run_E.log"),
+                                                cwd=str(tmp_path))
+    assert {"train", "backfill", "noise_fit", "predict_test", "predict_train"} <= set(stages)
+    dev = cs.hold_scale_out_run("E", summary, split, ref)
+    assert dev["Y"] <= cs.SCALE_OUT_Y_TOL
+    assert cs._cond_buckets(summary) == cs._cond_buckets(ref["summary"])
+    at_z = cs.run_e_at_reference_z(flags, split, ref, "cpu")
+    assert at_z["sigma_rel"] <= cs.SIGMA_RTOL

@@ -14,6 +14,7 @@ import pytest
 
 from dqgp_tpu import agent as JA
 from dqgp_tpu_torch import agent as TA
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _shard(seed=0, n=12):

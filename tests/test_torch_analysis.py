@@ -29,6 +29,7 @@ from dqgp_tpu_torch.data import split_data_numpy
 from dqgp_tpu_torch.models.circuits import build_circuit
 from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
 from dqgp_tpu_torch.utils import analysis as TA
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 

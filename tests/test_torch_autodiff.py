@@ -36,6 +36,7 @@ from dqgp_tpu_torch import driver as TD
 from dqgp_tpu_torch import manifold as TM
 from dqgp_tpu_torch.convert import spec_from_jax
 from dqgp_tpu_torch.parallel import consensus as TC
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRAD_RTOL = 1e-4
 

@@ -31,18 +31,7 @@ from dqgp_tpu_torch import manifold as TM
 from dqgp_tpu_torch.convert import spec_from_jax
 from dqgp_tpu_torch.parallel import consensus as TC
 from test_torch_autodiff import GRAD_RTOL, _jax_value_and_grad
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread here: these tests hand the work back and forth
-    between JAX and torch many times a step, so that torch's thread pool
-    does not compete with XLA's for the cores of a host that the other test
-    workers load too (the results do not depend on it)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _problem(seed):

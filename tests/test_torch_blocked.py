@@ -29,6 +29,7 @@ from dqgp_tpu.parallel import blocked as JB
 from dqgp_tpu_torch.convert import spec_from_jax
 from dqgp_tpu_torch.models.gp.posterior import predict_quantum_gp
 from dqgp_tpu_torch.parallel import blocked as TB
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MEAN = dict(rtol=1e-4, atol=1e-6)
 VAR = dict(rtol=1e-3, atol=1e-6)

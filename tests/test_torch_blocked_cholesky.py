@@ -38,14 +38,7 @@ from dqgp_tpu_torch.models.gp.posterior import masked_nll_core
 from dqgp_tpu_torch.models.kernels.quantum_kernel import gram_from_features
 from dqgp_tpu_torch.models.kernels.quantum_kernel import kernel_features as kernel_features_t
 from dqgp_tpu_torch.parallel import blocked as TB
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _problem(kernel_type="projected", outer="gaussian", N=75, seed=5, regularization=None,

@@ -11,6 +11,7 @@ from dqgp_tpu_torch.models.circuits import (
     ENCODING_TYPES as TORCH_ENCODING_TYPES,
     build_circuit as torch_build,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_same_families():

@@ -27,6 +27,7 @@ from dqgp_tpu_torch.ops import cuda_circuit as K
 from dqgp_tpu_torch.ops.circuit import (
     CRX, CRY, CRZ, CX, CZ, RX, RY, RZ, RZZ, H, Circuit, Gate,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 _X = np.array([[0, 1], [1, 0]], complex)
 _Y = np.array([[0, -1j], [1j, 0]])

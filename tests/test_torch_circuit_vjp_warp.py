@@ -37,6 +37,7 @@ from test_torch_states_warp import (
 from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
 from dqgp_tpu_torch.ops import circuit as tc
 from dqgp_tpu_torch.ops import cuda_circuit as K
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODEL_TOL = 1e-10
 

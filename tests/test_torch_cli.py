@@ -35,20 +35,10 @@ import chip_smoke as cs
 from dqgp_tpu import cli as J
 from dqgp_tpu_torch import cli as T
 from scripts.make_synthetic_tiles import write_tile
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the plain engines' many small ops on a host
-    that the other test workers load too spend their time in the thread
-    pool's barriers (a full-size run takes minutes instead of seconds);
-    the results hold on either."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 SMALL = ["--n-agents", "2", "--max-iter", "2", "--cv-folds", "3", "--no-plot", "--quiet"]
 RUNS = {

@@ -32,6 +32,7 @@ from dqgp_tpu_torch import tracing  # noqa: E402
 from dqgp_tpu_torch.models.circuits import build_circuit  # noqa: E402
 from dqgp_tpu_torch.ops import cuda_circuit as K  # noqa: E402
 from dqgp_tpu_torch.tracing import Span  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CELL = "config7q12.train"
 # what config7q12.json may hold apart from config7.json: its own names and
@@ -56,16 +57,6 @@ def metric(name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
-
-
-@pytest.fixture(autouse=True)
-def _threads():
-    """One torch thread: under the suite's six workers more threads a
-    worker oversubscribe the cores (the comparison below took 790 s at 4)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- the configuration ----------------------------------------------------------

@@ -11,6 +11,7 @@ from dqgp_tpu.parallel import make_admm_step as jax_step, make_agent_batch as ja
 from dqgp_tpu_torch.convert import spec_from_jax, state_from_numpy
 from dqgp_tpu_torch.parallel import make_admm_step as torch_step
 from dqgp_tpu_torch.parallel import make_agent_batch as torch_batch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _setup(n_agents=4, n_per=6, seed=0):

@@ -21,6 +21,7 @@ from dqgp_tpu_torch.models.circuits import ENCODING_TYPES, build_circuit
 from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
 from dqgp_tpu_torch.models.kernels import quantum_kernel as TQ
 from dqgp_tpu_torch.ops import cuda_circuit as K1
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

@@ -30,6 +30,7 @@ from dqgp_tpu_torch import driver as TD
 from dqgp_tpu_torch.convert import spec_from_jax
 from dqgp_tpu_torch.models.gp import cv as TCV
 from dqgp_tpu_torch.parallel import consensus as TC
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 Z_TOL, NLPD_TOL = 5e-3, 0.05
 

@@ -21,6 +21,7 @@ from dqgp_tpu_torch import driver as TD
 from dqgp_tpu_torch.data import split_data_numpy
 from dqgp_tpu_torch.models.circuits import build_circuit
 from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "torch_port_northstar.json"
 

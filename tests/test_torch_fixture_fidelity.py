@@ -18,6 +18,7 @@ from dqgp_tpu_torch import config
 from dqgp_tpu_torch import driver as TD
 from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
 from dqgp_tpu_torch.models.gp.posterior import predict_quantum_gp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

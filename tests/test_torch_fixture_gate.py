@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 
 import chip_smoke as cs
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _load(path):

@@ -26,6 +26,7 @@ from dqgp_tpu_torch import config as tconfig
 from dqgp_tpu_torch.convert import circuit_from_jax
 from dqgp_tpu_torch.ops import cuda_circuit as K
 from dqgp_tpu_torch.ops import fusion as tf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 F32_ATOL, F64_ATOL, PACKED_ATOL = 3e-6, 1e-12, 1e-6
 _xla_states = jax.jit(jsv.state_from_angles, static_argnums=(0, 2))

@@ -56,20 +56,9 @@ from dqgp_tpu_torch.models.circuits import build_circuit
 from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
 from dqgp_tpu_torch.models.kernels import quantum_kernel as TQ
 from dqgp_tpu_torch.parallel import consensus as TC
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SEAMS = ("features", "grams")
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread here: these tests hand the work back and forth
-    between JAX and torch many times a step, so that torch's thread pool
-    does not compete with XLA's for the cores of a host that the other test
-    workers load too (the results do not depend on it)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax_seams():

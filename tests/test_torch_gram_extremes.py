@@ -36,6 +36,7 @@ from dqgp_tpu_torch.data import split_data_numpy
 from dqgp_tpu_torch.models.kernels.quantum_kernel import grams_at_rows
 from dqgp_tpu_torch.ops import cuda_circuit as K
 from dqgp_tpu_torch.ops import cuda_eig as E
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FIXTURE = Path(__file__).resolve().parent / "fixtures" / "torch_port_northstar.json"
 BUCKETS = (1e8, 1e12, 1e15)

@@ -21,6 +21,7 @@ from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions as torch_eval
 from dqgp_tpu_torch.models.kernels import outer as TO
 from dqgp_tpu_torch.models.kernels import quantum_kernel as TQ
 from dqgp_tpu_torch.ops import linalg as TL
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 OUTER_CASES = [
     ("gaussian", {}), ("gaussian", {"gamma": 0.3}), ("matern", {}),

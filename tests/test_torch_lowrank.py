@@ -38,18 +38,9 @@ from dqgp_tpu_torch.convert import spec_from_jax
 from dqgp_tpu_torch.models.kernels.quantum_kernel import gram_from_features, regularize_gram
 from dqgp_tpu_torch.ops.lobpcg import lobpcg_standard
 from dqgp_tpu_torch.parallel import blocked as TB
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CLIP = dict(rtol=1e-6, atol=1e-8)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: LOBPCG's many small ops under the suite's
-    workers otherwise spend their time in the thread pool's barriers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def both_clips(A: np.ndarray, method: str, rank: int):

@@ -7,6 +7,7 @@ import torch
 
 from dqgp_tpu import manifold as JM
 from dqgp_tpu_torch import manifold as TM
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -19,6 +19,7 @@ from dqgp_tpu.models.kernels import QuantumKernelSpec as JaxSpec
 from dqgp_tpu_torch.convert import spec_from_jax
 from dqgp_tpu_torch.models.gp import NoiseFitResult, fit_noise_std
 from dqgp_tpu_torch.models.kernels.quantum_kernel import gram
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SPECS = {
     "projected": dict(encoding="hubregtsen", qubits=2, layers=1, kernel_type="projected",

@@ -20,6 +20,7 @@ from dqgp_tpu_torch.models.kernels import quantum_kernel as TQ
 from dqgp_tpu_torch.ops import _build
 from dqgp_tpu_torch.ops import cuda_circuit as K1
 from dqgp_tpu_torch.ops.circuit import Circuit, Gate, RY
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 5e-6  # float32 features, as tests/test_pallas_circuit.py holds them
 
@@ -128,18 +129,6 @@ def test_cuda_wrapper_validates_inputs(fake_cuda):
     with pytest.raises(ValueError, match="1 to 12 qubits"):
         K1.pauli_features_from_angles(big, torch.zeros((2, 1)))
     assert K1.pauli_features_from_angles.launches == 0
-
-
-@pytest.mark.parametrize("n", range(1, K1.ONE_WARP_QUBITS + 1))
-def test_launch_config_fits_shared_memory(n):
-    """The float64 kernel's block (its float32 twin keeps no state in shared
-    memory: tests/test_torch_states_warp.py::test_features_warp_geometry)."""
-    for G in (1, 40, 400):
-        tpb, gstride, smem = K1.launch_config(n, G)
-        assert tpb >= 1 and gstride % 2 == 1 and gstride >= G
-        assert smem == tpb * (16 * (1 << n) + 8 * gstride) <= 227 * 1024
-    assert K1.launch_config(4, 40)[0] == 128
-    assert K1.launch_config(10, 70)[0] == 8
 
 
 def test_build_failure_raises_with_compiler_output(monkeypatch, tmp_path):

@@ -29,6 +29,7 @@ from dqgp_tpu_torch.convert import circuit_from_jax, spec_from_jax
 from dqgp_tpu_torch.models.kernels import quantum_kernel as TQ
 from dqgp_tpu_torch.ops import cuda_circuit as K
 from dqgp_tpu_torch.ops import fusion as tf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 8e-6
 

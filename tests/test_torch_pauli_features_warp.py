@@ -3,13 +3,16 @@ numpy model of the lane/register split (tests/test_torch_states_warp.py)
 runs the unfused gate sequence with qubit q on bit q and then the model of
 csrc/warp_state.cuh's reduce_features (register qubits paired inside the
 lane, lane qubits with the partner lane, the lanes' sums in a butterfly, lane
-f mod L writing feature f), and is held to ``dqgp_tpu``'s XLA engine and to
-``make_pallas_pauli_features_fn`` in interpret mode on the same
-float32-representable angles, at the float32 bar of
-tests/test_pallas_circuit.py.
+f mod L writing feature f), and is held to ``dqgp_tpu``'s XLA engine on the
+same float32-representable angles, at the float32 bar of
+tests/test_pallas_circuit.py; the circuits with every gate kind to the XLA
+engine and to ``make_pallas_pauli_features_fn`` in interpret mode.
 
-Interpret mode compiles each circuit anew (2-16 s each), so its cases run
-one-layer circuits on two rows; the XLA engine's run two layers on three.
+The model's cases against the Pallas kernel alone are in
+tests/test_torch_pauli_features_warp_pallas.py (up to 6 qubits) and
+tests/test_torch_pauli_features_warp_pallas_wide.py (8 and 10): interpret
+mode compiles each circuit anew (2-16 s each, longer the more qubits), so
+they are files of their own, which the suite's workers run side by side.
 """
 
 import jax.numpy as jnp
@@ -24,6 +27,7 @@ from dqgp_tpu_torch.convert import circuit_from_jax
 
 from test_torch_states_warp import (
     K1_MODEL_QUBITS, _every_kind_circuit, _random_angles, model_features)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 5e-6  # float32 features, as tests/test_pallas_circuit.py holds them
 
@@ -41,6 +45,16 @@ def _model_and_angles(c, rows, seed):
     return model_features(c, a32.astype(np.float64)), jnp.asarray(a32)
 
 
+def hold_model_to_pallas_interpret(enc, n):
+    """K1's model against the Pallas kernel in interpret mode: a one-layer
+    circuit on two rows (the split files' cases)."""
+    jax_circuit = build_circuit(enc, n, 2, 1)
+    got, a = _model_and_angles(circuit_from_jax(jax_circuit), 2, seed=60 + n)
+    want = np.asarray(make_pallas_pauli_features_fn(jax_circuit, interpret=True)(a))
+    assert got.shape == want.shape == (2, 3 * n)
+    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("n", K1_MODEL_QUBITS)
 @pytest.mark.parametrize("enc", ENCODING_TYPES)
 def test_k1_model_matches_xla_engine(enc, n):
@@ -48,16 +62,6 @@ def test_k1_model_matches_xla_engine(enc, n):
     got, a = _model_and_angles(circuit_from_jax(jax_circuit), 3, seed=50 + n)
     want = np.asarray(jsv.pauli_features(jsv.state_from_angles(jax_circuit, a), n))
     assert got.shape == want.shape == (3, 3 * n)
-    np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
-
-
-@pytest.mark.parametrize("n", K1_MODEL_QUBITS)
-@pytest.mark.parametrize("enc", ENCODING_TYPES)
-def test_k1_model_matches_pallas_interpret(enc, n):
-    jax_circuit = build_circuit(enc, n, 2, 1)
-    got, a = _model_and_angles(circuit_from_jax(jax_circuit), 2, seed=60 + n)
-    want = np.asarray(make_pallas_pauli_features_fn(jax_circuit, interpret=True)(a))
-    assert got.shape == want.shape == (2, 3 * n)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
 

@@ -18,6 +18,7 @@ from dqgp_tpu.data import synthetic as JS
 from dqgp_tpu_torch.data import real_world as TR
 from dqgp_tpu_torch.data import synthetic as TS
 from scripts.make_synthetic_tiles import TILES, write_tile
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SCALED_TOL = 1e-12
 

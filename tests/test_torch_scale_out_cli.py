@@ -15,17 +15,9 @@ within 1e-6 of JAX's.
 import json
 
 import pytest
-import torch
 
 import chip_smoke as cs
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -29,6 +29,7 @@ from dqgp_tpu_torch.ops import cuda_circuit as K
 from dqgp_tpu_torch.ops import cuda_pair as CP
 from dqgp_tpu_torch.parallel import consensus as C
 from dqgp_tpu_torch.tracing import Span
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H = float(np.pi / 8)

@@ -32,6 +32,7 @@ from dqgp_tpu_torch import driver as TD
 from dqgp_tpu_torch.convert import spec_from_jax
 from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions as torch_eval
 from dqgp_tpu_torch.models.gp.posterior import predict_quantum_gp as torch_predict
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 Z_TOL, NLPD_TOL = 5e-3, 0.05
@@ -154,3 +155,19 @@ def test_no_jax_import_lines_in_the_port():
     offenders = [f"{f}:{i}" for f in sorted((REPO / "dqgp_tpu_torch").rglob("*.py"))
                  for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
     assert offenders == []
+
+
+def test_every_port_test_file_takes_the_one_thread_rule():
+    """tests/torch_threads.py holds the port's tests' one thread rule: every
+    tests/test_torch_*.py imports its fixture, and no test file nor the
+    package sets torch's thread count or defines a thread fixture itself."""
+    rule = re.compile(r"^from torch_threads import one_torch_thread\b", re.M)
+    sets = re.compile(r"\bset_num_(interop_)?threads\(")
+    own = re.compile(r"@pytest\.fixture[^\n]*\n(?:@[^\n]*\n)*def \w*thread", re.M)
+    files = sorted((REPO / "tests").glob("test_torch_*.py"))
+    assert len(files) > 40
+    missing = [f.name for f in files if not rule.search(f.read_text())]
+    setting = [f.name for f in files + sorted((REPO / "dqgp_tpu_torch").rglob("*.py"))
+               if sets.search(f.read_text())]
+    fixtures = [f.name for f in files if own.search(f.read_text())]
+    assert (missing, setting, fixtures) == ([], [], [])

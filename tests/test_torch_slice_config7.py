@@ -53,6 +53,7 @@ from dqgp_tpu_torch.data import generate_data_numpy
 from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions
 from dqgp_tpu_torch.models.kernels import quantum_kernel as TQ
 from dqgp_tpu_torch.parallel.blocked import make_cg_predictor
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, AGENTS, ITERS, CV_MAX = 107, 4, 2, 48
 TRAIN = dict(max_iter=ITERS, grad_method="streamed", cv_max_samples=CV_MAX,

@@ -47,6 +47,7 @@ from dqgp_tpu_torch.data import (
 from dqgp_tpu_torch.models.gp.metrics import evaluate_predictions as torch_eval
 from dqgp_tpu_torch.models.gp.posterior import predict_quantum_gp as torch_predict
 from dqgp_tpu_torch.ops import cuda_circuit as K
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, TEST_SPLIT, AGENTS, SEED, ITERS, FOLDS = 67, 0.1, 2, 42, 3, 3
 

@@ -24,6 +24,7 @@ from dqgp_tpu_torch.convert import circuit_from_jax, spec_from_jax
 from dqgp_tpu_torch.models.kernels import quantum_kernel as TQ
 from dqgp_tpu_torch.ops import cuda_circuit as K
 from dqgp_tpu_torch.ops import statevector as tsv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 C64_ATOL, F64_ATOL = 2e-6, 1e-12
 # one XLA program per circuit instead of one dispatch per gate
@@ -128,14 +129,3 @@ def test_facade_fidelity_gram_matches_jax():
     want = np.asarray(JQ.gram(JaxSpec(circuit=c, kernel_type="fidelity"),
                               jnp.asarray(X), jnp.asarray(theta), dtype=jnp.float64))
     np.testing.assert_allclose(qk.evaluate(X), want, rtol=0, atol=F64_ATOL)
-
-
-@pytest.mark.parametrize("n", range(1, K.ONE_WARP_QUBITS + 1))
-@pytest.mark.parametrize("real_bytes", [4, 8])
-def test_states_launch_config_fits_shared_memory(n, real_bytes):
-    for G in (1, 23, 400):
-        tpb, rstride, sstride, smem = K.states_launch_config(n, G, real_bytes)
-        assert tpb >= 1 and rstride % 2 == 1 and rstride >= G
-        assert sstride % 2 == 1 and sstride >= tpb
-        assert smem == real_bytes * (2 * (1 << n) * sstride + tpb * rstride) <= 227 * 1024
-    assert K.states_launch_config(6, 23)[0] == 128

@@ -27,6 +27,7 @@ from dqgp_tpu_torch.ops import circuit as tc
 from dqgp_tpu_torch.ops import cuda_circuit as K
 from dqgp_tpu_torch.ops import fusion as tf
 from dqgp_tpu_torch.ops import statevector as tsv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 MODEL_ATOL = 1e-12
 MODEL_QUBITS = (3, 5, 6, 7, 10)

@@ -17,6 +17,7 @@ from dqgp_tpu.ops.circuit import (
 )
 from dqgp_tpu_torch.convert import circuit_from_jax
 from dqgp_tpu_torch.ops import statevector as tsv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = {torch.complex128: (1e-12, 1e-12), torch.complex64: (2e-6, 5e-6)}
 JDT = {torch.complex128: jnp.complex128, torch.complex64: jnp.complex64}

@@ -36,6 +36,7 @@ from dqgp_tpu_torch.models.kernels.quantum_kernel import gram_and_shift_grads
 from dqgp_tpu_torch.parallel import make_admm_step as torch_step
 from dqgp_tpu_torch.parallel import make_agent_batch as torch_batch
 from dqgp_tpu_torch.parallel.consensus import agent_grams, streamed_nll_and_grad
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 KW = dict(rho=100.0, L=100.0, noise_std=0.1)
 ITERS = 3

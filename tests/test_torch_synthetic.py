@@ -20,6 +20,7 @@ from dqgp_tpu_torch.data import (
     generate_quantum_gp_data,
     train_test_split_np,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 Y_ATOL = 1e-8
 

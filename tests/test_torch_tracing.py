@@ -38,6 +38,7 @@ from dqgp_tpu_torch.models.kernels import QuantumKernelSpec
 from dqgp_tpu_torch.models.kernels.quantum_kernel import kernel_features
 from dqgp_tpu_torch.ops import cuda_circuit
 from dqgp_tpu_torch.parallel import blocked
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITERS = 3
