@@ -1192,8 +1192,9 @@ def k2_bound(circuit, B: int, real_bytes: int = 4):
 
 
 def k3_bound(circuit, B: int):
-    """K3: angles (B, G) and C in (from 11 qubits up the kernel derives C's
-    columns and reads no C), features (B, 3n) out, float32."""
+    """K3: angles (B, G) and C in (from 11 qubits up the kernel builds the
+    phase runs from the member codes and reads no C), features (B, 3n) out,
+    float32."""
     from dqgp_tpu_torch.ops import cuda_circuit as K
     from dqgp_tpu_torch.ops.fusion import diag_patterns_concat, fuse_circuit
 

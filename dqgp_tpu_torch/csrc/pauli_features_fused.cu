@@ -35,8 +35,9 @@
 // qubits (pauli_features_fused_q11_12.cu) a sample spans 2 and 4 warps, 32
 // amplitudes a lane: an op on qubit 10 or 11 trades amplitudes with the
 // partner warp through shared memory, the reduction adds the warps' shares
-// there, and the phase runs derive C's columns from their members (C would
-// take 176 and 384 KB: warp_program.cuh). Trig is
+// there, and each lane builds a phase run's phases from a polynomial over
+// its register bits, folded from the members' codes (C would take 176 and
+// 384 KB: warp_program.cuh). Trig is
 // warp_state.cuh's sin_cos (sincosf's algorithm, no fast-math intrinsics):
 // features are held to the plain fused engine at 8e-6.
 //

@@ -14,9 +14,10 @@
 //
 // Shared memory holds only the tables, the phase-pattern matrix C (permuted
 // so that the lanes of a group read consecutive words; from 11 qubits up,
-// where C takes 176 KB and more, the kernel derives its columns from the
-// members' codes instead, apply_diag_codes, and the warps' exchange slots
-// take C's place) and, per warp, its samples' staged rows (angles loaded
+// where C takes 176 KB and more, each lane builds a phase run's phases from
+// a polynomial over its register bits that it folds from the members' codes
+// instead, apply_diag_poly, and the warps' exchange slots take C's place)
+// and, per warp, its samples' staged rows (angles loaded
 // coalesced, at an odd stride, and the SU2 ops' 2x2s, which the lanes of a
 // sample build in turn). Blocks are
 // persistent: each loads the tables once, then its warps walk the batch a
@@ -35,7 +36,7 @@
 //   gate table rows [kind, index into the angle row], SU2 gates only;
 //   member table: each DIAG member's index into the angle row, -1 for a CZ
 //   (its angle is pi); from 11 qubits up followed by each member's code,
-//   kind | qubit << 4 | control << 8 (apply_diag_codes).
+//   kind | qubit << 4 | control << 8 (apply_diag_poly).
 // A sample's staged row is its G angles, its members' angles and, where the
 // sample spans several lanes, its SU2 ops' coefficients (8 an op), which the
 // lanes of the sample build between them.
@@ -209,10 +210,10 @@ __device__ __forceinline__ void run_fused_batch(const ProgramArgs& p, Finish fin
         apply_su2<N>(re, im, u, aux & 3, q, lig, make_control(ctl, lig));
       } else if (type == OP_PERM) {
         perm<N>(re, im, q, make_control(ctl, lig));
-      } else if constexpr (Geo::kW > 1) {  // C's columns from the members' codes
+      } else if constexpr (Geo::kW > 1) {  // the phases from the members' codes
         const float* a = row + first;
-        apply_diag_codes<N>(re, im, members_s + n_members + aux, count, lig,
-                            [a](int j) { return a[j]; });
+        apply_diag_poly<N>(re, im, members_s + n_members + aux, count, lig,
+                           [a](int j) { return a[j]; });
       } else {
         const float* a = row + first;
         apply_diag<N>(re, im, c_s + aux * Geo::kDim + lig, count,

@@ -325,8 +325,9 @@ def fused_tables(circuit: Circuit, states_layout: bool = False):
 
     From 11 qubits up C (176 KB and more) is not staged: it is (0, 32, L),
     and the member table is followed by each member's code, kind | bit of
-    its qubit << 4 | bit of its control (0 for an RZ) << 8, from which K3
-    derives C's columns (``csrc/warp_state.cuh``'s apply_diag_codes).
+    its qubit << 4 | bit of its control (0 for an RZ) << 8, from which each
+    lane of K3 folds a phase run's polynomial over its register bits
+    (``csrc/warp_state.cuh``'s apply_diag_poly).
 
     The op and gate tables have at least one row, so that the kernel
     always gets a valid pointer; it reads no member where there is none."""
@@ -369,8 +370,8 @@ def fused_tables(circuit: Circuit, states_layout: bool = False):
 def member_codes(circuit: Circuit, states_layout: bool = False) -> list:
     """Each phase-run member's code, kind | bit of its qubit << 4 | bit of its
     control (0 for an RZ) << 8, in the member table's order: from 11 qubits up
-    K3 derives C's columns from them (``csrc/warp_state.cuh``'s
-    pattern_entry), as ``fusion.diag_pattern`` builds C."""
+    K3 builds the phase runs from them (``csrc/warp_state.cuh``'s
+    lane_polynomial), by ``fusion.diag_pattern``'s conventions."""
     n = circuit.num_qubits
     bit = (lambda q: states_bit(n, q)) if states_layout else (lambda q: q)
     return [kind | bit(q) << 4 | max(bit(c), 0) << 8 for op in fuse_circuit(circuit).ops

@@ -6,15 +6,15 @@ those of another tree, on a machine with nvcc and a card.
 
 PARENT_CSRC is the ``csrc/`` of another commit, e.g. of the parent unpacked
 with ``git archive`` into a directory that .gitignore lists
-(``_chip_checkout/``). Every warp-kernel source that both trees hold is
-built with the package's nvcc flags, one process each, all started
-together. For each kernel and qubit count it prints ptxas's report
-(registers, stack frame, spills) beside the other tree's, and whether the
-instantiation's SASS (``cuobjdump -sass``) is the other tree's, instruction
-for instruction. With ``--time`` it times K3 and K1 at config #7's step
-shape (chebyshev 10 qubits / 2 layers, B = 108,032) from both builds in
-turns within one call (other, this, this, other; CUDA events), through the
-same tables and geometry.
+(``_chip_checkout/``). Every warp-kernel source that both trees hold, the
+11-12-qubit translation units included, is built with the package's nvcc
+flags, one process each, all started together. For each kernel and qubit
+count it prints ptxas's report (registers, stack frame, spills) beside the
+other tree's, and whether the instantiation's SASS (``cuobjdump -sass``) is
+the other tree's, instruction for instruction. With ``--time`` it times K3
+and K1 at config #7's step shape (chebyshev 2 layers, B = 108,032) at 10,
+11 and 12 qubits from both builds in turns within one call (other, this,
+this, other; CUDA events), through the same tables and geometry.
 """
 
 import argparse
@@ -33,9 +33,10 @@ import chip_smoke as cs  # noqa: E402
 from dqgp_tpu_torch.ops import _build  # noqa: E402
 from dqgp_tpu_torch.ops import cuda_circuit as K  # noqa: E402
 
-SOURCES = {"K1": K.SOURCE, "K1_f64": K.SOURCE, "K2": K.STATES_SOURCE,
-           "K2_f64": K.STATES_SOURCE, "K3": K.FEATURES_FUSED_SOURCE, "K4": K.FUSED_SOURCE,
-           "vjp": K.VJP_SOURCE}
+# (kernel, source): the 1-10-qubit sources, then the 11-12-qubit ones
+SOURCES = [("K1", K.SOURCE), ("K1_f64", K.SOURCE), ("K2", K.STATES_SOURCE),
+           ("K2_f64", K.STATES_SOURCE), ("K3", K.FEATURES_FUSED_SOURCE),
+           ("K4", K.FUSED_SOURCE), ("vjp", K.VJP_SOURCE), *K.WIDE_SOURCES.items()]
 
 
 def build(csrc: str, source: str, out_dir: str):
@@ -74,18 +75,20 @@ def instantiation_sass(sass: dict, entry: str) -> dict:
     return found
 
 
-def time_k1_k3(libs: dict) -> None:
-    """K3 and K1 at config #7's step shape from each tree's build, in turns."""
+def time_k1_k3(libs: dict, n: int) -> None:
+    """K3 and K1 at config #7's step shape, at n qubits, from each tree's
+    build, in turns."""
     import numpy as np
     import torch
 
     dev = torch.device("cuda", 0)
-    circuit = cs.config7_spec().circuit
-    n, G, B = circuit.num_qubits, circuit.num_gates, cs.C7_STEP_ROWS
+    circuit = cs.config7_spec(n).circuit
+    G, B = circuit.num_gates, cs.C7_STEP_ROWS
     angles = (torch.rand((B, G), generator=torch.Generator(device=dev).manual_seed(0),
                          device=dev) * 4.0 - 1.0) * np.pi
     out = torch.empty((B, 3 * n), device=dev)
     ops, gates, members, cperm = K._fused_device_tables(circuit, dev, False)
+    n_members = members.shape[0] // (2 if n > K.ONE_WARP_QUBITS else 1)  # then codes
     program = K.fuse_circuit(circuit)
     fgeo, kgeo = K.fused_geometry(circuit), K.features_geometry(circuit)
     table = K._gate_table(circuit, dev)
@@ -99,7 +102,7 @@ def time_k1_k3(libs: dict) -> None:
             fn.argtypes = [vp] * 6 + [i32] * 9 + [i64, vp]
             args = (angles.data_ptr(), cperm.data_ptr(), ops.data_ptr(), gates.data_ptr(),
                     members.data_ptr(), out.data_ptr(), B, n, G, len(program.ops),
-                    gates.shape[0], members.shape[0], program.n_su2, cperm.shape[0],
+                    gates.shape[0], n_members, program.n_su2, cperm.shape[0],
                     fgeo.threads, fgeo.smem_bytes, stream)
         else:
             fn = lib.dqgp_pauli_features
@@ -114,7 +117,8 @@ def time_k1_k3(libs: dict) -> None:
         return launch
 
     for name, source in (("K3", K.FEATURES_FUSED_SOURCE), ("K1", K.SOURCE)):
-        other, this = (launcher(libs[t][source], source) for t in ("other", "this"))
+        lib = K.kernel_source(name, n)
+        other, this = (launcher(libs[t][lib], source) for t in ("other", "this"))
         other_ms, this_ms = cs._alternate_ms([other, this], 20)
         print(f"{name} at B={B}, n={n}, G={G}: other tree {other_ms:.4f} ms, this tree "
               f"{this_ms:.4f} ms a launch (other, this, this, other)", flush=True)
@@ -126,7 +130,7 @@ def main() -> None:
     ap.add_argument("--time", action="store_true", help="time K3 and K1 from both builds")
     args = ap.parse_args()
     trees = {"other": os.path.abspath(args.other_csrc), "this": str(_build.CSRC_DIR)}
-    sources = sorted({s for s in SOURCES.values()
+    sources = sorted({s for _, s in SOURCES
                       if all(os.path.exists(os.path.join(t, s)) for t in trees.values())})
     with tempfile.TemporaryDirectory() as tmp:
         jobs = [(t, s) for t in trees for s in sources]
@@ -137,7 +141,7 @@ def main() -> None:
                 lambda j: build(trees[j[0]], j[1], os.path.join(tmp, j[0])), jobs)))
         sass = {j: sass_by_function(lib) for j, (lib, _) in built.items()}
         same_everywhere, compared = True, [0, 0]  # instantiations, instructions
-        for name, source in SOURCES.items():
+        for name, source in SOURCES:
             if source not in sources:
                 continue
             entry = cs.WARP_KERNELS[name]
@@ -158,7 +162,8 @@ def main() -> None:
               f"{'identical' if same_everywhere else 'differs where marked'} ({compared[0]} "
               f"instantiations, {compared[1]} instructions identical)", flush=True)
         if args.time:
-            time_k1_k3({t: {s: built[(t, s)][0] for s in sources} for t in trees})
+            for n in (cs.C7_QUBITS, *cs.WIDE_QUBITS):
+                time_k1_k3({t: {s: built[(t, s)][0] for s in sources} for t in trees}, n)
 
 
 if __name__ == "__main__":

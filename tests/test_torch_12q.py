@@ -10,10 +10,12 @@ pauli_features_f64_q11_12.cu, pauli_features_fused_q11_12.cu).
   register k & 31 of lane (k >> 5) & 31 of warp k >> 10 of its sample's
   group, round-tripping at 1-12 qubits; gates on a register, lane and warp
   bit through the kernels' case split (a warp bit through the exchange
-  slots); the phase runs from the member codes; the reduction's per-warp
+  slots); each phase run's phases from every lane's polynomial over its
+  register bits, folded from the member codes; the reduction's per-warp
   partial sums. Held to the plain engine at 1e-12 (the split is exact).
-* The derived phase-run columns equal ``diag_patterns_concat``'s at 1-12
-  qubits; the geometry within the shared-memory budget; K2, K4 and the
+* The member codes' entries equal ``diag_patterns_concat``'s columns at
+  1-12 qubits, and every lane's polynomial rebuilds its phase runs at 11
+  and 12; the geometry within the shared-memory budget; K2, K4 and the
   adjoint raise at 11-12 qubits with no plain fallback; the wrappers take
   the wide sources.
 * ``train()`` at 12 qubits on the fixture's CPU cut
@@ -159,16 +161,10 @@ class WarpGroupState:
     def diag(self, phi):
         self.s = self.s * np.exp(1j * phi)
 
-    def diag_codes(self, codes, member_angles):
-        """apply_diag_codes: each member's column from its code and the
-        amplitude's bits, the phases summed in the members' order."""
-        phi = 0.0
-        for j, code in enumerate(codes):
-            kind, bq, bc = code & 15, self.bit((code >> 4) & 15), self.bit(code >> 8)
-            col = {tc.RZ: bq - 0.5, tc.CRZ: bc * (bq - 0.5), tc.CZ: (bq & bc) * 1.0,
-                   tc.RZZ: (bq ^ bc) - 0.5}[kind]
-            phi = phi + col[None] * member_angles[:, j, None, None, None]
-        self.diag(phi)
+    def diag_poly(self, codes, member_angles):
+        """apply_diag_poly: every lane's polynomial over its register bits
+        from the member codes, then its 32 phases from it."""
+        self.diag(chunk_phases(*lane_polynomial(codes, member_angles, self.lig)))
 
     def features(self):
         """reduce_features_swept from 11 qubits up: each warp's shares of the
@@ -189,6 +185,65 @@ class WarpGroupState:
         total = part.sum(1)
         total[:, :2 * n] *= 2.0
         return total
+
+
+# csrc/warp_state.cuh's decode of a member's code: its entry in C is
+# k0 + kq x + kc y + kqc x y in the bit x of its qubit and y of its control
+MEMBER_TERMS = {tc.RZ: (-0.5, 1.0, 0.0, 0.0), tc.CRZ: (0.0, 0.0, -0.5, 1.0),
+                tc.CZ: (0.0, 0.0, 0.0, 1.0), tc.RZZ: (-0.5, 1.0, 1.0, -2.0)}
+# gamma's register-bit pairs in the kernel's order (pair_index)
+REGISTER_PAIRS = [(b, b2) for b in range(5) for b2 in range(b + 1, 5)]
+
+
+def decode(code):
+    """A member code's kind, qubit bit and control bit (0 for an RZ)."""
+    return code & 15, (code >> 4) & 15, code >> 8
+
+
+def lane_polynomial(codes, member_angles, lig):
+    """csrc/warp_state.cuh's lane_polynomial for each sample (member_angles
+    (rows, K)) and each lane lig (an array of any shape): alpha (rows,
+    *lig.shape), beta (..., 5) and gamma (..., 10) of the run's phase
+    alpha + sum_b beta_b bit_b + sum_{b<b'} gamma_bb' bit_b bit_b' over the
+    register bits, each member decoded once and its lane and warp bits
+    (bits of lig << 5) folded in."""
+    lig = np.asarray(lig)
+    rows = member_angles.shape[0]
+    alpha = np.zeros((rows,) + lig.shape)
+    beta = np.zeros(alpha.shape + (5,))
+    gamma = np.zeros(alpha.shape + (len(REGISTER_PAIRS),))
+    high = lig << 5
+    for j, code in enumerate(codes):
+        kind, q, c = decode(code)
+        k0, kq, kc, kqc = MEMBER_TERMS[kind]
+        x, y = (high >> q) & 1, (high >> c) & 1  # 0 on a register bit
+        a = member_angles[:, j].reshape((rows,) + (1,) * lig.ndim)
+        alpha = alpha + a * (k0 + kq * x + kc * y + kqc * x * y)
+        if q < 5:
+            beta[..., q] += a * (kq + kqc * y)
+        if c < 5:
+            beta[..., c] += a * (kc + kqc * x)
+        if q < 5 and c < 5 and q != c:
+            gamma[..., REGISTER_PAIRS.index((min(q, c), max(q, c)))] += a * kqc
+    return alpha, beta, gamma
+
+
+def chunk_phases(alpha, beta, gamma):
+    """csrc/warp_state.cuh's chunk_phases over a lane's 32 registers, a chunk
+    of 4 at a time: (..., 32), register r last."""
+    g = {pair: gamma[..., i] for i, pair in enumerate(REGISTER_PAIRS)}
+    out = []
+    for r0 in range(0, 32, 4):
+        base, d0, d1 = alpha, beta[..., 0], beta[..., 1]
+        for b in range(2, 5):
+            if (r0 >> b) & 1:
+                base = base + beta[..., b]
+                for b2 in range(2, b):
+                    if (r0 >> b2) & 1:
+                        base = base + g[(b2, b)]
+                d0, d1 = d0 + g[(0, b)], d1 + g[(1, b)]
+        out += [base, base + d0, base + d1, base + d0 + (d1 + g[(0, 1)])]
+    return np.stack(out, -1)
 
 
 def _gate_2x2(kind, half):
@@ -225,8 +280,8 @@ def model_k1(circuit, angles):
 def model_k3(circuit, angles):
     """K3 in the model: the fused program from fused_tables (the SU2 ops'
     2x2s from their gates, each new gate on the left; PERM rows; the phase
-    runs from the member codes that follow the member table), then the
-    reduction."""
+    runs from each lane's polynomial, folded from the member codes that
+    follow the member table), then the reduction."""
     ops, gates, members, cperm = K.fused_tables(circuit)
     n_members = members.size // 2
     assert cperm.shape[0] == 0 and members[n_members:].tolist() == K.member_codes(circuit)
@@ -242,7 +297,7 @@ def model_k3(circuit, angles):
         else:
             idx = members[aux:aux + count]
             a = np.where(idx >= 0, angles[:, np.maximum(idx, 0)], np.pi)
-            st.diag_codes(members[n_members + aux:n_members + aux + count].tolist(), a)
+            st.diag_poly(members[n_members + aux:n_members + aux + count].tolist(), a)
     return st.features()
 
 
@@ -260,28 +315,21 @@ def test_warp_model_matches_the_plain_engine(n, which):
 
 
 def pattern_entry(code, k):
-    """csrc/warp_state.cuh's pattern_entry at amplitude k, its bits taken
-    from the register (k & 31) and lig (k >> 5) as the kernel takes them."""
-    r, lig = k & 31, k >> 5
-
-    def bit(b):
-        return (r >> b) & 1 if b < 5 else (lig >> (b - 5)) & 1
-
-    kind, bq, bc = code & 15, bit((code >> 4) & 15), bit(code >> 8)
-    if kind == tc.RZ:
-        return np.float32(bq) - np.float32(0.5)
-    if kind == tc.CRZ:
-        return np.float32(bq) - np.float32(0.5) if bc else np.float32(0.0)
-    if kind == tc.CZ:
-        return np.float32(bq & bc)
-    return np.float32(bq ^ bc) - np.float32(0.5)
+    """A member's entry in C at the amplitudes k (an array) by the kernel's
+    decode of its code (MEMBER_TERMS): k0 + kq x + kc y + kqc x y in the bit
+    x of its qubit and y of its control."""
+    kind, q, c = decode(code)
+    k0, kq, kc, kqc = MEMBER_TERMS[kind]
+    x, y = (k >> q) & 1, (k >> c) & 1
+    return (k0 + kq * x + kc * y + kqc * x * y).astype(np.float32)
 
 
 @pytest.mark.parametrize("n", range(2, 13))
 def test_member_codes_rebuild_the_pattern_columns(n):
-    """Every member's derived column equals diag_patterns_concat's, exactly,
-    for circuits whose phase runs hold RZ, CRZ, CZ and RZZ members (at 1
-    qubit no circuit has a phase run)."""
+    """Every member's entries from its code, as the kernel decodes it, equal
+    diag_patterns_concat's column, exactly, for circuits whose phase runs
+    hold RZ, CRZ, CZ and RZZ members (at 1 qubit no circuit has a phase
+    run)."""
     circuits = [_every_kind_circuit(n, seed=s) for s in (1, 2)]
     circuits += [circuit_from_jax(build_circuit(e, n, 2, 2)) for e in ("chebyshev", "random")]
     kinds = set()
@@ -292,10 +340,73 @@ def test_member_codes_rebuild_the_pattern_columns(n):
             assert not cmat.any()
             continue
         k = np.arange(1 << n)
-        got = np.stack([np.array([pattern_entry(code, i) for i in k]) for code in codes], 1)
+        got = np.stack([pattern_entry(code, k) for code in codes], 1)
         np.testing.assert_array_equal(got, cmat)
         kinds |= {code & 15 for code in codes}
     assert kinds == {tc.RZ, tc.CRZ, tc.CZ, tc.RZZ}
+
+
+# the circuits whose phase runs the lanes' polynomials are held on: those of
+# test_member_codes_rebuild_the_pattern_columns, and chip_smoke.py's circuit
+# of every kind on the warp bits (the only one with an RZZ on two register
+# bits at 12 qubits)
+POLY_CIRCUITS = ("every_kind_1", "every_kind_2", "chebyshev", "random", "every_kind_warp")
+
+
+def _poly_circuit(which, n):
+    if which == "every_kind_warp":
+        return cs.every_kind_circuit(n)
+    if which.startswith("every_kind"):
+        return _every_kind_circuit(n, seed=int(which[-1]))
+    return circuit_from_jax(build_circuit(which, n, 2, 2))
+
+
+def _bit_class(code):
+    """The register (r) or lane-or-warp (h) bits a member sits on: its qubit's
+    for an RZ, its qubit's then its control's for the others."""
+    kind, q, c = decode(code)
+    cls = "".join("r" if b < 5 else "h" for b in (q, c))
+    return kind, cls[0] if kind == tc.RZ else cls
+
+
+@pytest.mark.parametrize("n", WIDE)
+@pytest.mark.parametrize("which", POLY_CIRCUITS)
+def test_lane_polynomials_rebuild_the_phase_runs(n, which):
+    """For every lane of a sample's group (lig 0 .. 2^(n-5) - 1) and every
+    phase run, the lane's alpha, beta and gamma, folded from the member
+    codes, give ``diag_patterns_concat``'s phases at each of its 32
+    amplitudes, in float64, to 1e-12."""
+    c = _poly_circuit(which, n)
+    program = tf.fuse_circuit(c)
+    cmat = tf.diag_patterns_concat(program).astype(np.float64)
+    codes = K.member_codes(c)
+    lig = np.arange(1 << (n - 5))
+    rng = np.random.RandomState(n)
+    col = 0
+    for op in program.ops:
+        if not isinstance(op, tf.DiagOp):
+            continue
+        assert op.row_start - 8 * program.n_su2 == col
+        a = rng.uniform(-np.pi, 3 * np.pi, (3, op.K))
+        got = chunk_phases(*lane_polynomial(codes[col:col + op.K], a, lig))
+        assert got.shape == (3, lig.size, 32)
+        want = a @ cmat[:, col:col + op.K].T  # amplitude lig * 32 + register
+        assert np.abs(got.reshape(3, 1 << n) - want).max() <= MODEL_ATOL
+        col += op.K
+    assert col == len(codes) > 0
+
+
+@pytest.mark.parametrize("n", WIDE)
+def test_lane_polynomial_cases_cover_every_kind_and_bit_class(n):
+    """The circuits of test_lane_polynomials_rebuild_the_phase_runs hold
+    each kind on each class of bits: an RZ on a register bit and on a lane
+    or warp bit; a CRZ, CZ and RZZ with both bits register bits, one of
+    each (either way round), and both lane or warp bits."""
+    seen = {_bit_class(code) for which in POLY_CIRCUITS
+            for code in K.member_codes(_poly_circuit(which, n))}
+    want = {(tc.RZ, "r"), (tc.RZ, "h")} | {
+        (kind, cls) for kind in (tc.CRZ, tc.CZ, tc.RZZ) for cls in ("rr", "rh", "hr", "hh")}
+    assert want <= seen
 
 
 # ---------------------------------------------------------------------------

@@ -85,7 +85,8 @@ def test_config7q12_counts_are_chip_smokes_arithmetic():
     assert fused == own["fused_program_ops_per_sample"]
     assert counts.feature_ops(12) == cs.feature_ops(12) == own["reduction_ops_per_sample"]
     # the smaller of the two programs: the gate sequence at 12 qubits, and the
-    # fused program's count reads no C (K3 derives its columns from 11 qubits)
+    # fused program's count reads no C (K3 builds its phases from the member
+    # codes from 11 qubits)
     assert gate < fused
     assert own["feature_ops_per_sample"] == gate + cs.feature_ops(12)
     assert own["feature_bytes_per_sample"] == 4 * (circuit.num_gates + 3 * 12)

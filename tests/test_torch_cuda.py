@@ -615,6 +615,50 @@ def test_wide_launches_are_counted_on_card(cuda):
     assert K1.wide_launch_counts() == {"K1": 0, "K1_f64": 0, "K3": 0}
 
 
+@pytest.mark.parametrize("n", [11, 12])
+def test_wide_fused_phase_runs_match_plain_on_card(cuda, n):
+    """K3 at 11 and 12 qubits, where each lane builds a phase run's phases
+    from its polynomial over the register bits, against the plain fused
+    engine at chip_smoke.py's K1_TOL, on ``chip_smoke.every_kind_circuit``:
+    phase runs of RZ, CRZ, CZ and RZZ members on register, lane and warp
+    bits. The angles are whole numbers, and every other member angle of the
+    runs without a CZ is +-2^18: those runs' phases pass 105,615, where
+    sin_cos takes the Payne-Hanek path, and every order of their sums is
+    exact (a CZ's pi stays in runs of small phases). Each call is one
+    launch, counted as wide."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from dqgp_tpu_torch.ops import fusion as tf
+
+    c = cs.every_kind_circuit(n)
+    runs = [op for op in tf.fuse_circuit(c).ops if isinstance(op, tf.DiagOp)]
+    members = [m for op in runs for m in op.members]
+    assert {kind for kind, *_ in members} == {2, 5, 8, 9}  # RZ, CZ, CRZ, RZZ
+    bits = {b for _, q, ctl, _ in members for b in (q, ctl) if b >= 0}
+    assert min(bits) < 5 and any(5 <= b < 10 for b in bits) and max(bits) >= 10
+    large = [gi for op in runs if all(kind != 5 for kind, *_ in op.members)
+             for _, _, _, gi in op.members[::2]]
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    for B in (1, 131):
+        a = torch.randint(-3, 10, (B, c.num_gates), generator=gen, device=cuda).float()
+        sign = torch.randint(0, 2, (B, len(large)), generator=gen, device=cuda).float()
+        a[:, large] = (2 * sign - 1) * 2.0 ** 18
+        rows = a.double().cpu().numpy()
+        phi = max(np.abs(np.where([gi < 0 for *_, gi in op.members], np.pi, rows[:, [
+            max(gi, 0) for *_, gi in op.members]]) @ tf.diag_pattern(op, n).T).max()
+            for op in runs)
+        assert phi > 105615.0
+        before = K1.launch_counts()["K3"], K1.wide_launch_counts()["K3"]
+        got = K1.pauli_features_from_angles_fused(c, a)
+        torch.cuda.synchronize()
+        assert (K1.launch_counts()["K3"], K1.wide_launch_counts()["K3"]) == (
+            before[0] + 1, before[1] + 1)
+        assert got.shape == (B, 3 * n) and torch.isfinite(got).all()
+        err = float((got - K1.pauli_features_fused_reference(c, a)).abs().max())
+        assert err <= cs.K1_TOL
+
+
 # the streamed gradient's contraction kernel (ops/cuda_pair.py) against its
 # plain version, the loop's PyTorch arithmetic: within 1e-6 of the largest
 # component (phase 11b's streamed = central bar), the sums' order apart
